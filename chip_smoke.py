@@ -1,0 +1,389 @@
+"""Smoke run of the PyTorch / CUDA port on one card.
+
+    python3 chip_smoke.py
+
+Phases, one status line each; the first failure raises and exits
+non-zero:
+  1. device     — the card's name and power limit (no card: exit 2).
+  2. build      — nvcc builds kernels B1-B3 from src/repro_torch/csrc;
+                  registers and shared memory per kernel (-Xptxas -v).
+  3. kernels    — every kernel bit-identical to its plain torch version
+                  at the shapes and densities of tests/test_kernels.py and
+                  at the main path's shapes (C=16384, B=1024), with CUDA
+                  event times of the kernel, the plain version and a
+                  library yardstick, beside the least time the card could
+                  take (bound).
+  4. parity     — the delheavy and steady SGT streams at C=2048, B=256,
+                  8 ticks on the card (kernels) and on the CPU (plain
+                  versions): identical ok bits, adjacency, closure words,
+                  epoch and ReachStats after every call.
+  5. main path  — `repro_torch.launch.serve` at C=16384, B=1024 under the
+                  CLI's default method ("auto"): steady (engine api) 20
+                  ticks, delheavy 20 ticks, insheavy 10 ticks, each with
+                  its launch counters zeroed first and followed by 1024
+                  reachable() queries; then cache_matches_state and
+                  is_acyclic.  Fails unless every kernel launched.
+The line before the last is the per-kernel JSON record, the last line
+the device record.  Imports only the port, torch and numpy.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8 tensor
+C_FULL, B_FULL = 16384, 1024    # the slice's size (main path)
+C_PARITY, B_PARITY, T_PARITY = 2048, 256, 8
+
+KERNELS = {
+    "bitmm": ("src/repro_torch/csrc/bitmm.cu", "src/repro/kernels/bitmm.py:50"),
+    "closure_update": ("src/repro_torch/csrc/closure_update.cu",
+                       "src/repro/kernels/closure_update.py:56"),
+    "closure_delete": ("src/repro_torch/csrc/closure_delete.cu",
+                       "src/repro/kernels/closure_delete.py:67"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(phase: str, msg: str) -> None:
+    print(f"[{phase}] {msg}", flush=True)
+
+
+# ------------------------------------------------------------- 1. device
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is present", file=sys.stderr)
+        sys.exit(2)
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    say("device", f"{name}; torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
+    return smi.stdout.strip().splitlines()[0]
+
+
+# -------------------------------------------------------------- 2. build
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    say("build", f"{lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    kernel = None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
+                          m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            smem = re.search(r"(\d+) bytes smem", line)
+            say("build", f"{kernel}: {m.group(1)} registers, "
+                f"{smem.group(1) if smem else 0} bytes shared memory")
+        if "spill" in line and kernel:
+            say("build", f"{kernel}: {line.strip()}")
+
+
+# ------------------------------------------------------------ 3. kernels
+
+def packed(shape, density, gen):
+    from repro_torch.core import bitset
+    return bitset.pack_bits(torch.rand(shape, generator=gen,
+                                       device="cuda") < density)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call over ``reps`` calls, CUDA events, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference of the packed 0/1 entries."""
+    return 1.0 if bool(torch.any(a != b)) else 0.0
+
+
+def popcount_total(x: torch.Tensor) -> int:
+    from repro_torch.core import bitset
+    return int(torch.sum(bitset.popcount(x), dtype=torch.int64))
+
+
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth
+    and the operations over the int8 tensor-core peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fp16_matmul_ms(lhs_packed, rhs_packed, reps: int) -> float:
+    """The library yardstick: one fp16 torch.matmul of the unpacked
+    operands (no packed boolean product exists as one PyTorch call)."""
+    from repro_torch.core import bitset
+    a = bitset.unpack_bits(lhs_packed).to(torch.float16)
+    b = bitset.unpack_bits(rhs_packed).to(torch.float16)
+    ms = cuda_ms(lambda: torch.matmul(a, b), reps)
+    del a, b
+    return ms
+
+
+def phase_kernels():
+    """Bit-identity sweeps plus timings; returns {kernel: record}."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = {k: 0.0 for k in KERNELS}
+    n_cases = 0
+    for m, k, n in [(128, 128, 128), (64, 256, 512), (256, 512, 256),
+                    (8, 1024, 1024), (33, 96, 160)]:
+        for d in (0.0, 0.02, 0.5):
+            lhs, rhs = packed((m, k), d, gen), packed((k, n), 0.05, gen)
+            err["bitmm"] = max(err["bitmm"], mismatch(
+                ops.bitmm_packed(lhs, rhs, impl="cuda"),
+                ops.bitmm_packed(lhs, rhs, impl="ref")))
+            n_cases += 1
+    for c, b in [(128, 32), (256, 64), (512, 256), (1024, 32), (320, 64)]:
+        for d in (0.0, 0.05, 0.5):
+            args = (packed((c, c), d, gen), packed((c, b), 0.2, gen),
+                    packed((b, c), 0.1, gen))
+            err["closure_update"] = max(err["closure_update"], mismatch(
+                ops.closure_update(*args, impl="cuda"),
+                ops.closure_update(*args, impl="ref")))
+            n_cases += 1
+    for c in (128, 320, 512, 1024):
+        for af in (0.0, 0.25, 1.0):
+            args = (packed((c, c), 0.05, gen), packed((c, c), 0.05, gen),
+                    packed((c,), af, gen))
+            err["closure_delete"] = max(err["closure_delete"], mismatch(
+                ops.closure_delete(*args, impl="cuda"),
+                ops.closure_delete(*args, impl="ref")))
+            n_cases += 1
+    torch.cuda.synchronize()
+    say("kernels", f"{n_cases} test_kernels.py cases on the card, max abs "
+        f"err per kernel {err}")
+    check(not any(err.values()), f"kernel disagrees with its plain "
+          f"version at the test shapes: {err}")
+
+    records = {}
+    c, w = C_FULL, C_FULL // 32
+    say("kernels", "library_ms = one fp16 torch.matmul of the unpacked "
+        "operands: a yardstick only, the port never calls it")
+
+    def measure(name, label, kernel_fn, plain_fn, lib_args, nbytes, ops_n,
+                reps=20, plain_reps=3, lib_reps=5):
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        e = mismatch(got, want)
+        del got, want
+        check(e == 0.0, f"{name} disagrees with its plain version at {label}")
+        rec = {"ms": cuda_ms(kernel_fn, reps),
+               "plain_ms": cuda_ms(plain_fn, plain_reps),
+               "library_ms": fp16_matmul_ms(*lib_args, lib_reps)}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n)
+        rec["max_abs_err"] = max(e, err[name])
+        say("kernels", f"{name} {label}: kernel_ms={rec['ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}) library_ms={rec['library_ms']:.3f}")
+        return rec
+
+    # B1: a closure squaring (C x C) and a frontier hop (B rows), 1% dense
+    lhs, rhs = packed((c, c), 0.01, gen), packed((c, c), 0.01, gen)
+    records["bitmm"] = measure(
+        "bitmm", f"squaring ({c}, {w}) x ({c}, {w}), 1% dense",
+        lambda: ops.bitmm_packed(lhs, rhs, impl="cuda"),
+        lambda: ops.bitmm_packed(lhs, rhs, impl="ref"), (lhs, rhs),
+        3 * c * w * 4, 2 * popcount_total(lhs) * c)
+    front = packed((B_FULL, c), 0.01, gen)
+    measure("bitmm", f"frontier hop ({B_FULL}, {w}) x ({c}, {w}), 1% dense",
+            lambda: ops.bitmm_packed(front, rhs, impl="cuda"),
+            lambda: ops.bitmm_packed(front, rhs, impl="ref"), (front, rhs),
+            (2 * B_FULL * w + c * w) * 4, 2 * popcount_total(front) * c)
+    del front
+    # B2: the rank-B fold at C=16384, B=1024
+    mask = packed((c, B_FULL), 0.01, gen)
+    rows = packed((B_FULL, c), 0.01, gen)
+    records["closure_update"] = measure(
+        "closure_update", f"C={c} B={B_FULL}, 1% dense mask and rows",
+        lambda: ops.closure_update(lhs, mask, rows, impl="cuda"),
+        lambda: ops.closure_update(lhs, mask, rows, impl="ref"),
+        (mask, rows), (2 * c * w + c * B_FULL // 32 + B_FULL * w) * 4,
+        2 * popcount_total(mask) * c)
+    del mask, rows
+    # B3: one repair hop at C=16384, 1% and 25% of the rows affected
+    from repro_torch.core import bitset
+    for frac in (0.01, 0.25):
+        aff = packed((c,), frac, gen)
+        aff_rows = bitset.unpack_bits(aff)
+        rec = measure(
+            "closure_delete", f"C={c}, {frac:.0%} rows affected, 1% dense",
+            lambda: ops.closure_delete(lhs, rhs, aff, impl="cuda"),
+            lambda: ops.closure_delete(lhs, rhs, aff, impl="ref"),
+            (lhs, rhs), (3 * c * w + w) * 4,
+            2 * popcount_total(lhs[aff_rows]) * c)
+        if frac == 0.01:
+            records["closure_delete"] = rec
+    del lhs, rhs
+    torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------------------- 4. parity
+
+def phase_parity():
+    """The whole path on the card and on the CPU, compared call by call."""
+    from repro_torch.core.engine import DagEngine
+    from repro_torch.interop import engine_to_arrays
+    from repro_torch.launch import serve
+
+    streams = {
+        "delheavy": (serve.churn_tick, "incremental", serve._sgt_churn_inputs(
+            C_PARITY, B_PARITY, T_PARITY, 0, "delheavy")),
+        "steady": (serve.steady_tick, "auto", serve._sgt_tick_inputs(
+            C_PARITY, B_PARITY, T_PARITY, 0)),
+    }
+    for name, (tick, method, inputs) in streams.items():
+        engines = {d: DagEngine.create(C_PARITY, method=method, device=d)
+                   for d in ("cuda", "cpu")}
+        n_calls = 0
+        t0 = time.perf_counter()
+        for xs in inputs:
+            results = {}
+            for d in engines:
+                engines[d], results[d] = tick(engines[d],
+                                              serve.on_device(d, xs))
+            for rc, rh in zip(results["cuda"], results["cpu"]):
+                check(torch.equal(rc.ok.cpu(), rh.ok),
+                      f"{name}: ok bits differ card vs CPU")
+                check(int(rc.n_overflow) == int(rh.n_overflow),
+                      f"{name}: n_overflow differs")
+                for field, a, b in zip(rc.stats._fields, rc.stats, rh.stats):
+                    check(np.array_equal(np.asarray(a), np.asarray(b)),
+                          f"{name}: ReachStats.{field} differs: {a} vs {b}")
+                n_calls += 1
+            ac, ah = (engine_to_arrays(engines[d]) for d in ("cuda", "cpu"))
+            for leaf in ac:
+                check(np.array_equal(ac[leaf], ah[leaf]),
+                      f"{name}: engine leaf {leaf} differs card vs CPU")
+        say("parity", f"{name}: {T_PARITY} ticks, {n_calls} calls at "
+            f"C={C_PARITY} B={B_PARITY} identical on card and CPU "
+            f"(epoch {engines['cuda'].epoch}, "
+            f"{time.perf_counter() - t0:.1f}s)")
+
+
+# ---------------------------------------------------------- 5. main path
+
+def phase_main_path():
+    """The three serving runs through the CLI's default method ("auto"),
+    each with its launch counters zeroed just before it and read just
+    after its 1024 reachable() queries; validation comes after that."""
+    from repro_torch.core import closure_cache
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    kw = dict(capacity=C_FULL, batch=B_FULL, method="auto", device="cuda")
+    runs = [("steady", 20, lambda: serve.serve_sgt(api="engine", ticks=20,
+                                                   **kw)),
+            ("delheavy", 20, lambda: serve.serve_sgt_churn(
+                profile="delheavy", ticks=20, **kw)),
+            ("insheavy", 10, lambda: serve.serve_sgt_insert_heavy(ticks=10,
+                                                                   **kw))]
+    gen = np.random.default_rng(0)
+    torch.cuda.reset_peak_memory_stats()
+    total = {k: 0 for k in KERNELS}
+    engines = {}
+    for name, ticks, run in runs:
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        out = run()
+        eng = out["engine"]
+        live = eng.state.keys[eng.state.alive].cpu().numpy()
+        pool = live if live.size else np.arange(C_FULL, dtype=np.int32)
+        hits = eng.reachable(gen.choice(pool, 1024), gen.choice(pool, 1024))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += launches[k]
+        engines[name] = eng
+        say("main", f"{name}: {out['ops_per_s']:.0f} ops/s (median tick), "
+            f"row_products={out.get('row_products', 'n/a')} "
+            f"repairs={out.get('n_repairs', 'n/a')} "
+            f"live={live.size} edges={int(eng.edge_count())} "
+            f"reachable hits={int(hits.sum())}/1024 epoch={eng.epoch} "
+            f"launches {launches} over {ticks} ticks + 1 warm-up tick + "
+            f"the queries ({time.perf_counter() - t0:.1f}s)")
+    say("main", f"launches on the main path {total}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    check(all(v > 0 for v in total.values()),
+          f"a kernel never launched on the main path: {total}")
+    for name, eng in engines.items():
+        check(closure_cache.cache_matches_state(eng.cache, eng.state.adj),
+              f"{name}: the cache disagrees with a from-scratch closure")
+        check(bool(eng.is_acyclic()), f"{name}: the graph has a cycle")
+    say("main", "every run: cache_matches_state and is_acyclic hold")
+    return total
+
+
+def main() -> int:
+    t0 = time.perf_counter()
+    smi = phase_device()
+    sys.path.insert(0, str(ROOT / "src"))
+    # the port's small float32 products hold 0/1 values (exact either
+    # way); pin full float32 all the same
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    records = phase_kernels()
+    phase_parity()
+    launches = phase_main_path()
+    say("done", f"all phases passed in {time.perf_counter() - t0:.1f}s")
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        r = records[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
