@@ -5,24 +5,40 @@
 Phases, one status line each; the first failure raises and exits
 non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
-  2. build      — nvcc builds kernels B1-B3 from src/repro_torch/csrc;
+  2. build      — nvcc builds kernels B1-B5 from src/repro_torch/csrc;
                   registers and shared memory per kernel (-Xptxas -v).
   3. kernels    — every kernel bit-identical to its plain torch version
-                  at the shapes and densities of tests/test_kernels.py and
-                  at the main path's shapes (C=16384, B=1024), with CUDA
-                  event times of the kernel, the plain version and a
-                  library yardstick, beside the least time the card could
-                  take (bound).
-  4. parity     — the delheavy and steady SGT streams at C=2048, B=256,
-                  8 ticks on the card (kernels) and on the CPU (plain
-                  versions): identical ok bits, adjacency, closure words,
-                  epoch and ReachStats after every call.
+                  at the shapes and densities of tests/test_kernels.py
+                  (B1-B3) and over windows R in {32, 96, 1024, 4096},
+                  densities 0 / 1% / 25% / 100%, all-live and no-live
+                  bands (B4, B5, occupancy included), and at the main
+                  paths' shapes (C=16384, B=1024 dense; R=1024, B=128
+                  tiled), with CUDA event times of the kernel, the plain
+                  version and a library yardstick, beside the least time
+                  the card could take (bound); kernel_ms is per call
+                  (CUDA events), device_ms the kernel alone
+                  (torch.profiler).
+  4. parity     — on the card (kernels) and on the CPU (plain versions),
+                  compared after every call (ok bits, adjacency, closure
+                  words or tiles and summary, dirty flag, epoch,
+                  ReachStats): the delheavy and steady SGT streams at
+                  C=2048, B=256, 8 ticks (dense), and the mixed churn
+                  stream at C=2048, B=128, 8 ticks on the tiled layout
+                  with the default window and a 64-slot one.
   5. main path  — `repro_torch.launch.serve` at C=16384, B=1024 under the
-                  CLI's default method ("auto"): steady (engine api) 20
-                  ticks, delheavy 20 ticks, insheavy 10 ticks, each with
-                  its launch counters zeroed first and followed by 1024
-                  reachable() queries; then cache_matches_state and
-                  is_acyclic.  Fails unless every kernel launched.
+                  CLI's default method ("auto"): steady (engine api) 10
+                  ticks, delheavy 10 ticks, insheavy 6 ticks, each
+                  followed by 1024 reachable() queries; then the tiled
+                  layout's main path, `serve_sgt_churn` at C=131072,
+                  B=128, 10 mixed ticks, method "incremental", default
+                  window (1024 slots; the 2 GiB adjacency on the card).
+                  Each run has its launch counters zeroed just before it
+                  and read just after.  Checks: the C=131072 accept bits
+                  equal a 64-slot-window run's on the same stream, and at
+                  C=16384 the tiled layout's equal the dense layout's;
+                  cache_matches_state and is_acyclic hold (the tiled
+                  checks square the window once region_confined holds).
+                  Fails unless every kernel launched.
 The line before the last is the per-kernel JSON record, the last line
 the device record.  Imports only the port, torch and numpy.
 """
@@ -41,8 +57,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8 tensor
-C_FULL, B_FULL = 16384, 1024    # the slice's size (main path)
+C_FULL, B_FULL = 16384, 1024    # the dense layout's main path
+C_TILED, B_TILED, T_TILED = 131072, 128, 10   # the tiled layout's main path
+R_TILED = 1024                  # its window (closure_cache.DEFAULT_REGION)
 C_PARITY, B_PARITY, T_PARITY = 2048, 256, 8
+B_PARITY_TILED = 128
 
 KERNELS = {
     "bitmm": ("src/repro_torch/csrc/bitmm.cu", "src/repro/kernels/bitmm.py:50"),
@@ -50,6 +69,10 @@ KERNELS = {
                        "src/repro/kernels/closure_update.py:56"),
     "closure_delete": ("src/repro_torch/csrc/closure_delete.cu",
                        "src/repro/kernels/closure_delete.py:67"),
+    "closure_update_tiled": ("src/repro_torch/csrc/closure_update_tiled.cu",
+                             "src/repro/kernels/closure_update.py:120"),
+    "closure_delete_tiled": ("src/repro_torch/csrc/closure_delete_tiled.cu",
+                             "src/repro/kernels/closure_delete.py:134"),
 }
 
 
@@ -131,6 +154,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
+    launch over ``reps`` calls of ``fn``, from `torch.profiler`: the
+    kernel alone, without the host time of its wrapper (which sets the
+    per-call time of a kernel shorter than its launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_ticks import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if f"{kernel}_kernel" in e.key]
+    # the mean over the launches the profiler recorded (it may drop one)
+    launches = sum(e.count for e in events)
+    check(launches > 0, f"the profiler saw no launch of {kernel}")
+    return sum(_device_us(e) for e in events) / 1e3 / launches
+
+
 def mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
     """Largest absolute difference of the packed 0/1 entries."""
     return 1.0 if bool(torch.any(a != b)) else 0.0
@@ -191,9 +236,30 @@ def phase_kernels():
                 ops.closure_delete(*args, impl="cuda"),
                 ops.closure_delete(*args, impl="ref")))
             n_cases += 1
+    for r in (32, 96, 1024, 4096):
+        for d in (0.0, 0.01, 0.25, 1.0):
+            for band_live in (True, False):
+                mask = packed((r, B_TILED), d, gen)
+                aff = packed((r,), 1.0, gen)
+                if not band_live:   # every other 32-row band carries nothing
+                    mask.view(r // 32, 32, -1)[1::2] = 0
+                    aff[1::2] = 0
+                upd = (packed((r, r), d, gen), mask,
+                       packed((B_TILED, r), d, gen))
+                dele = (packed((r, r), d, gen), packed((r, r), d, gen), aff)
+                for name, fn, args in (
+                        ("closure_update_tiled", ops.closure_update_tiled,
+                         upd),
+                        ("closure_delete_tiled", ops.closure_delete_tiled,
+                         dele)):
+                    (out, occ), (want, want_occ) = (
+                        fn(*args, impl="cuda"), fn(*args, impl="ref"))
+                    err[name] = max(err[name], mismatch(out, want),
+                                    mismatch(occ, want_occ))
+                    n_cases += 1
     torch.cuda.synchronize()
-    say("kernels", f"{n_cases} test_kernels.py cases on the card, max abs "
-        f"err per kernel {err}")
+    say("kernels", f"{n_cases} cases on the card (test_kernels.py shapes; "
+        f"tiled windows 32-4096), max abs err per kernel {err}")
     check(not any(err.values()), f"kernel disagrees with its plain "
           f"version at the test shapes: {err}")
 
@@ -206,17 +272,22 @@ def phase_kernels():
                 reps=20, plain_reps=3, lib_reps=5):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        e = mismatch(got, want)
+        if isinstance(got, tuple):   # the tiled kernels: (words, occ)
+            e = max(mismatch(a, b) for a, b in zip(got, want))
+        else:
+            e = mismatch(got, want)
         del got, want
         check(e == 0.0, f"{name} disagrees with its plain version at {label}")
         rec = {"ms": cuda_ms(kernel_fn, reps),
                "plain_ms": cuda_ms(plain_fn, plain_reps),
                "library_ms": fp16_matmul_ms(*lib_args, lib_reps)}
+        device = kernel_device_ms(kernel_fn, reps, name)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n)
         rec["max_abs_err"] = max(e, err[name])
         say("kernels", f"{name} {label}: kernel_ms={rec['ms']:.4f} "
-            f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
-            f"({rec['bound_by']}) library_ms={rec['library_ms']:.3f}")
+            f"(device_ms={device:.4f} alone) plain_ms={rec['plain_ms']:.3f} "
+            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
+            f"library_ms={rec['library_ms']:.3f}")
         return rec
 
     # B1: a closure squaring (C x C) and a frontier hop (B rows), 1% dense
@@ -256,6 +327,33 @@ def phase_kernels():
         if frac == 0.01:
             records["closure_delete"] = rec
     del lhs, rhs
+    # B4 and B5 at the tiled main path's window (R=1024) and batch
+    # (B=128), operands 1% dense: bytes under 1 us, so launch latency
+    # sets the time
+    r, wr = R_TILED, R_TILED // 32
+    tiles, s = packed((r, r), 0.01, gen), packed((r, r), 0.01, gen)
+    mask = packed((r, B_TILED), 0.01, gen)
+    rows = packed((B_TILED, r), 0.01, gen)
+    records["closure_update_tiled"] = measure(
+        "closure_update_tiled", f"R={r} B={B_TILED}, 1% dense",
+        lambda: ops.closure_update_tiled(tiles, mask, rows, impl="cuda"),
+        lambda: ops.closure_update_tiled(tiles, mask, rows, impl="ref"),
+        (mask, rows), (2 * r * wr + r * B_TILED // 32 + B_TILED * wr
+                       + (r // 32) * wr) * 4,
+        2 * popcount_total(mask) * r, reps=200, plain_reps=20, lib_reps=50)
+    for frac in (0.01, 0.25):
+        aff = packed((r,), frac, gen)
+        aff_rows = bitset.unpack_bits(aff)
+        rec = measure(
+            "closure_delete_tiled", f"R={r}, {frac:.0%} rows affected, "
+            "1% dense",
+            lambda: ops.closure_delete_tiled(tiles, s, aff, impl="cuda"),
+            lambda: ops.closure_delete_tiled(tiles, s, aff, impl="ref"),
+            (tiles, s), (3 * r * wr + wr + (r // 32) * wr) * 4,
+            2 * popcount_total(tiles[aff_rows]) * r, reps=200,
+            plain_reps=20, lib_reps=50)
+        if frac == 0.01:
+            records["closure_delete_tiled"] = rec
     torch.cuda.empty_cache()
     return records
 
@@ -268,14 +366,24 @@ def phase_parity():
     from repro_torch.interop import engine_to_arrays
     from repro_torch.launch import serve
 
+    mixed = serve._sgt_churn_inputs(C_PARITY, B_PARITY_TILED, T_PARITY, 0,
+                                    "mixed")
     streams = {
-        "delheavy": (serve.churn_tick, "incremental", serve._sgt_churn_inputs(
-            C_PARITY, B_PARITY, T_PARITY, 0, "delheavy")),
-        "steady": (serve.steady_tick, "auto", serve._sgt_tick_inputs(
-            C_PARITY, B_PARITY, T_PARITY, 0)),
+        "delheavy": (serve.churn_tick, "incremental", {}, B_PARITY,
+                     serve._sgt_churn_inputs(C_PARITY, B_PARITY, T_PARITY, 0,
+                                             "delheavy")),
+        "steady": (serve.steady_tick, "auto", {}, B_PARITY,
+                   serve._sgt_tick_inputs(C_PARITY, B_PARITY, T_PARITY, 0)),
+        "tiled mixed": (serve.churn_tick, "incremental",
+                        {"closure_layout": "tiled"}, B_PARITY_TILED, mixed),
+        "tiled mixed, 64-slot window": (
+            serve.churn_tick, "incremental",
+            {"closure_layout": "tiled", "closure_region": 64},
+            B_PARITY_TILED, mixed),
     }
-    for name, (tick, method, inputs) in streams.items():
-        engines = {d: DagEngine.create(C_PARITY, method=method, device=d)
+    for name, (tick, method, layout, batch, inputs) in streams.items():
+        engines = {d: DagEngine.create(C_PARITY, method=method, device=d,
+                                       **layout)
                    for d in ("cuda", "cpu")}
         n_calls = 0
         t0 = time.perf_counter()
@@ -298,42 +406,59 @@ def phase_parity():
                 check(np.array_equal(ac[leaf], ah[leaf]),
                       f"{name}: engine leaf {leaf} differs card vs CPU")
         say("parity", f"{name}: {T_PARITY} ticks, {n_calls} calls at "
-            f"C={C_PARITY} B={B_PARITY} identical on card and CPU "
-            f"(epoch {engines['cuda'].epoch}, "
+            f"C={C_PARITY} B={batch} identical on card and CPU "
+            f"(epoch {engines['cuda'].epoch}, dirty "
+            f"{engines['cuda'].cache.dirty}, window "
+            f"{engines['cuda'].closure_region}, "
             f"{time.perf_counter() - t0:.1f}s)")
 
 
 # ---------------------------------------------------------- 5. main path
 
-def phase_main_path():
-    """The three serving runs through the CLI's default method ("auto"),
-    each with its launch counters zeroed just before it and read just
-    after its 1024 reachable() queries; validation comes after that."""
-    from repro_torch.core import closure_cache
+def _launches_of(run):
+    """Run ``run`` with the launch counters zeroed just before it; returns
+    (its result, the launches it made)."""
     from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def phase_main_path():
+    """The dense serving runs through the CLI's default method ("auto"),
+    then the tiled layout's serving run at C=131072, each with its launch
+    counters zeroed just before it and read just after; the decision and
+    validation checks come after that, outside the counted runs."""
+    from repro_torch.core import closure_cache
     from repro_torch.launch import serve
 
     kw = dict(capacity=C_FULL, batch=B_FULL, method="auto", device="cuda")
-    runs = [("steady", 20, lambda: serve.serve_sgt(api="engine", ticks=20,
+    runs = [("steady", 10, lambda: serve.serve_sgt(api="engine", ticks=10,
                                                    **kw)),
-            ("delheavy", 20, lambda: serve.serve_sgt_churn(
-                profile="delheavy", ticks=20, **kw)),
-            ("insheavy", 10, lambda: serve.serve_sgt_insert_heavy(ticks=10,
-                                                                   **kw))]
+            ("delheavy", 10, lambda: serve.serve_sgt_churn(
+                profile="delheavy", ticks=10, **kw)),
+            ("insheavy", 6, lambda: serve.serve_sgt_insert_heavy(ticks=6,
+                                                                  **kw))]
     gen = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats()
     total = {k: 0 for k in KERNELS}
     engines = {}
     for name, ticks, run in runs:
         t0 = time.perf_counter()
-        ops.reset_launches()
-        out = run()
+
+        def run_and_read(run=run):
+            out = run()
+            eng = out["engine"]
+            live = eng.state.keys[eng.state.alive].cpu().numpy()
+            pool = live if live.size else np.arange(C_FULL, dtype=np.int32)
+            hits = eng.reachable(gen.choice(pool, 1024),
+                                 gen.choice(pool, 1024))
+            return out, live, hits
+
+        (out, live, hits), launches = _launches_of(run_and_read)
         eng = out["engine"]
-        live = eng.state.keys[eng.state.alive].cpu().numpy()
-        pool = live if live.size else np.arange(C_FULL, dtype=np.int32)
-        hits = eng.reachable(gen.choice(pool, 1024), gen.choice(pool, 1024))
-        torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)
         for k in total:
             total[k] += launches[k]
         engines[name] = eng
@@ -344,14 +469,76 @@ def phase_main_path():
             f"reachable hits={int(hits.sum())}/1024 epoch={eng.epoch} "
             f"launches {launches} over {ticks} ticks + 1 warm-up tick + "
             f"the queries ({time.perf_counter() - t0:.1f}s)")
-    say("main", f"launches on the main path {total}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    check(all(v > 0 for v in total.values()),
-          f"a kernel never launched on the main path: {total}")
     for name, eng in engines.items():
         check(closure_cache.cache_matches_state(eng.cache, eng.state.adj),
               f"{name}: the cache disagrees with a from-scratch closure")
         check(bool(eng.is_acyclic()), f"{name}: the graph has a cycle")
+    del engines, eng, out
+
+    # the tiled layout's main path
+    tiled_kw = dict(capacity=C_TILED, batch=B_TILED, ticks=T_TILED,
+                    method="incremental", profile="mixed",
+                    closure_layout="tiled", collect_decisions=True,
+                    device="cuda")
+    t0 = time.perf_counter()
+    tiled, launches = _launches_of(lambda: serve.serve_sgt_churn(**tiled_kw))
+    for k in total:
+        total[k] += launches[k]
+    eng = tiled["engine"]
+    say("main", f"tiled C={C_TILED} B={B_TILED}: {tiled['ops_per_s']:.0f} "
+        f"ops/s (median tick), tick {tiled['tick_us'] / 1e3:.3f} ms, "
+        f"closure_bytes={tiled['closure_bytes']} "
+        f"cache_clean={tiled['cache_clean']} "
+        f"row_products={tiled['row_products']} "
+        f"repairs={tiled['n_repairs']} accepted={tiled['accepted']} "
+        f"window={eng.closure_region} epoch={eng.epoch} launches "
+        f"{launches} over {T_TILED} ticks + 1 warm-up tick "
+        f"({time.perf_counter() - t0:.1f}s)")
+    check(launches["closure_update_tiled"] > 0
+          and launches["closure_delete_tiled"] > 0,
+          f"the tiled main path did not launch B4 and B5: {launches}")
+    say("main", f"launches on the main paths {total}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    check(all(v > 0 for v in total.values()),
+          f"a kernel never launched on the main path: {total}")
+
+    # checks, outside the counted runs
+    check(closure_cache.region_confined(eng.state.adj, eng.closure_region),
+          "the tiled engine has an edge outside its window")
+    check(closure_cache.cache_matches_state(eng.cache, eng.state.adj),
+          "tiled C=131072: the cache disagrees with a from-scratch closure "
+          "of the window")
+    check(bool(eng.is_acyclic()), "tiled C=131072: the graph has a cycle")
+    check(tiled["closure_bytes"] == closure_cache.closure_nbytes(
+        eng.cache.closure), "closure_bytes is not the resident closure")
+    del eng, tiled["engine"]
+    small = serve.serve_sgt_churn(closure_region=64, **tiled_kw)
+    match = bool(np.array_equal(small["decisions"], tiled["decisions"]))
+    say("main", f"tiled C={C_TILED}, 64-slot window: decisions_match="
+        f"{match} ({small['decisions'].size} candidates), "
+        f"cache_clean={small['cache_clean']} "
+        f"row_products={small['row_products']} "
+        f"repairs={small['n_repairs']} "
+        f"closure_bytes={small['closure_bytes']}")
+    check(match, "tiled C=131072: the 64-slot window decides differently")
+    del small
+    pair = {layout: serve.serve_sgt_churn(
+        capacity=C_FULL, batch=B_FULL, ticks=T_TILED, method="incremental",
+        profile="mixed", closure_layout=layout, collect_decisions=True,
+        device="cuda") for layout in ("dense", "tiled")}
+    match = bool(np.array_equal(pair["dense"]["decisions"],
+                                pair["tiled"]["decisions"]))
+    say("main", f"C={C_FULL} B={B_FULL} mixed, {T_TILED} ticks: tiled vs "
+        f"dense decisions_match={match}; closure_bytes "
+        f"{pair['tiled']['closure_bytes']} vs {pair['dense']['closure_bytes']}")
+    check(match, f"C={C_FULL}: the tiled layout decides differently from "
+          "the dense one")
+    for layout, out in pair.items():
+        eng = out["engine"]
+        check(closure_cache.cache_matches_state(eng.cache, eng.state.adj),
+              f"C={C_FULL} {layout}: the cache disagrees with a "
+              "from-scratch closure")
+        check(bool(eng.is_acyclic()), f"C={C_FULL} {layout}: a cycle")
     say("main", "every run: cache_matches_state and is_acyclic hold")
     return total
 

@@ -9,7 +9,10 @@ allows).  ``method`` picks the check — "closure" (Algorithm 1),
 differs.  ``subbatches=K`` checks K priority classes in sequence.
 
 The reference's ``lax.scan`` over sub-batches is a host loop, and its
-``lax.cond`` / ``lax.switch`` are host branches.
+``lax.cond`` / ``lax.switch`` are host branches.  On the tiled closure
+layout the incremental check reads the region window; a dirty cache
+whose graph has spilled past the window is decided by the exact
+from-scratch partial check instead (the tiles stay stale).
 """
 from __future__ import annotations
 
@@ -76,6 +79,8 @@ def acyclic_add_edges_impl(
         # first sub-batch pays one lazy rebuild, the rest ride the cache
         cache = closure_cache.empty_cache(capacity, dirty=True,
                                           device=state.device)
+    tiled = cached and closure_cache.is_tiled(cache.closure)
+    region = cache.closure.region if tiled else capacity
     zero_depths = torch.zeros((n_shards,), dtype=torch.int32)
 
     def shard_depths(decided_at: torch.Tensor) -> torch.Tensor:
@@ -123,7 +128,16 @@ def acyclic_add_edges_impl(
                 any_accept = bool(torch.any(cand & ~cyc))
                 # opportunistic refresh: with zero rejects the committed
                 # graph IS G ∪ transit, so cfull is its exact closure
-                if any_reject:
+                if tiled:
+                    # adopted into the window only when the transit graph
+                    # fits it (a confined graph has a confined closure)
+                    if not any_reject and closure_cache.region_confined(
+                            adj_t, region):
+                        closure = closure_cache.tiled_of(cfull, region)
+                        dirty = False
+                    else:
+                        dirty = dirty or any_accept
+                elif any_reject:
                     dirty = dirty or any_accept
                 else:
                     closure, dirty = cfull, False
@@ -141,12 +155,29 @@ def acyclic_add_edges_impl(
             # then the B^2-bit-read check and the rank-B fold-in
             closure0, n = closure_cache.refresh_closure(closure, dirty, adj,
                                                         matmul_impl)
-            cyc = closure_cache.incremental_cycle_check(closure0, u_slot,
-                                                        v_slot, cand)
-            closure = closure_cache.insert_update(
-                closure0, u_slot, v_slot, cand & ~cyc, closure_update_impl)
-            dirty = False
-            rp = n * capacity
+            if not tiled:
+                cyc = closure_cache.incremental_cycle_check(closure0, u_slot,
+                                                            v_slot, cand)
+                closure = closure_cache.insert_update(
+                    closure0, u_slot, v_slot, cand & ~cyc,
+                    closure_update_impl)
+                dirty = False
+                rp = n * capacity
+            elif dirty and not closure_cache.region_confined(adj, region):
+                # the committed graph has spilled past the window (only
+                # when the window is not widened host-side): the tiles stay
+                # stale and the exact from-scratch partial check decides
+                cyc, n, _ = snapshot.partial_cycle_check(
+                    adj_t, u_slot, v_slot, cand, p_impl, with_stats=True,
+                    with_depths=True)
+                closure, dirty, rp = closure0, True, n * b_sub
+            else:
+                cyc = closure_cache.incremental_cycle_check(closure0, u_slot,
+                                                            v_slot, cand)
+                closure, dirty = closure_cache.insert_update_tiled(
+                    closure0, u_slot, v_slot, cand & ~cyc,
+                    closure_update_impl)
+                rp = n * region
             n_incremental += 1
         n_products += n
         row_products += rp

@@ -1,6 +1,6 @@
 """Unified `DagEngine` session API — the local backend, in torch.
 
-Port of `repro.core.engine` (local backend, dense closure layout):
+Port of `repro.core.engine` (local backend, both closure layouts):
 
     eng = DagEngine.create(1024)                    # on "cuda", method="auto"
     eng, r = eng.add_vertices(keys)                 # r: OpResult
@@ -23,11 +23,22 @@ boolean product, rank-B fold and delete-repair hop launches the
 hand-written kernels B1 / B2 / B3 with no argument from the caller; on a
 CPU engine the same dispatchers run the plain versions.
 
-Not ported yet, each raising NotImplementedError: ``backend="sharded"``
-(ROADMAP.md section A item 11) and ``closure_layout="tiled"`` (item 8).
+``closure_layout="tiled"`` keeps the closure cache as 32x32-bit tiles in
+a region window plus a per-tile occupancy summary (kernels B4 / B5 on the
+card).  Eager calls widen the window host-side before it overflows, as
+the reference's eager calls do; calls made inside `as_compiled` run as
+the reference runs them inside its jitted serving tick, with no host
+widening, so an edge past the window degrades the cache to dirty and the
+exact partial check decides.  The window's high-water marks are reduced
+on the card: only integers cross to the host, never the slab.
+
+Not ported yet, raising NotImplementedError: ``backend="sharded"``
+(ROADMAP.md section A item 11).
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
@@ -48,8 +59,24 @@ BACKENDS = ("local", "sharded")
 
 SHARDED_NOT_PORTED = ("backend='sharded' is not ported yet "
                       "(ROADMAP.md section A item 11)")
-TILED_NOT_PORTED = ("closure_layout='tiled' is not ported yet "
-                    "(ROADMAP.md section A item 8)")
+
+_COMPILED = contextvars.ContextVar("repro_torch_compiled", default=False)
+
+
+@contextlib.contextmanager
+def as_compiled():
+    """Run the engine calls inside as the reference runs them inside
+    ``jax.jit`` (its serving ticks are jitted), where the host cannot widen
+    the tiles window between calls: `DagEngine._pre_widened` and
+    `_region_synced` are identities, so an edge past the window degrades
+    the cache to dirty and the exact partial check decides.  The tick
+    bodies of `launch/serve.py` run under it; calls outside it widen as
+    the reference's eager calls do."""
+    token = _COMPILED.set(True)
+    try:
+        yield
+    finally:
+        _COMPILED.reset(token)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -158,9 +185,8 @@ class OpResult(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static session configuration (see `repro.core.engine.EngineConfig`;
-    the mesh and tiled-layout fields come with their ports).  ``device``
-    is the one option the port adds.  ``None`` for an impl means the
-    `kernels.ops` dispatcher."""
+    the mesh field comes with its port).  ``device`` is the one option the
+    port adds.  ``None`` for an impl means the `kernels.ops` dispatcher."""
 
     capacity: int
     backend: str = "local"
@@ -171,6 +197,11 @@ class EngineConfig:
     closure_update_impl: Optional[object] = None
     closure_delete_impl: Optional[object] = None
     auto_grow: bool = False
+    # "dense" keeps the int32[C, C/32] slab; "tiled" the tiles window plus
+    # summary (`closure_cache.TiledClosure`)
+    closure_layout: str = "dense"
+    # the tiles window's initial size (0 = min(capacity, 1024))
+    closure_region: int = 0
     device: torch.device = torch.device("cpu")
 
     @property
@@ -200,6 +231,20 @@ def validate_capacity(capacity: int, *, backend: str = "local",
         raise ValueError(
             f"{backend} {what} must be a multiple of {align} ({why}), got "
             f"{capacity}; nearest valid capacity is {nearest}")
+
+
+def _bit_high_water(packed: torch.Tensor) -> int:
+    """The smallest window covering every set bit of a (C, C/32) bit
+    matrix: max(last non-empty row + 1, 32 * (last non-empty word column
+    + 1)), 0 when empty.  Reduced on the device: one int crosses to the
+    host, not the matrix."""
+    c, w = packed.shape
+    dev = packed.device
+    rows = torch.where(torch.any(packed, dim=1),
+                       torch.arange(1, c + 1, device=dev), 0)
+    cols = torch.where(torch.any(packed, dim=0),
+                       torch.arange(1, w + 1, device=dev) * bitset.WORD, 0)
+    return int(torch.maximum(torch.max(rows), torch.max(cols)))
 
 
 def _zero_ema(n_dev: int) -> torch.Tensor:
@@ -238,10 +283,11 @@ class DagEngine:
         """Create an empty engine on ``device`` (None: the card; raises if
         none is present).  ``policy`` overrides ``method``; "auto" gets
         `CostModelPolicy`, a fixed method `FixedPolicy`.  The impl hooks
-        default to the `kernels.ops` dispatchers.  ``mesh`` and
-        ``closure_region`` are the reference's keywords for the sharded
-        backend and the tiled layout; the local dense engine ignores
-        them, as the reference's does."""
+        default to the `kernels.ops` dispatchers.
+        ``closure_layout="tiled"`` stores the cache as tiles in a region
+        window (``closure_region`` pre-sizes it) plus a per-tile occupancy
+        summary.  ``mesh`` is the reference's keyword for the sharded
+        backend; the local engine ignores it, as the reference's does."""
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -254,22 +300,27 @@ class DagEngine:
             raise ValueError(
                 f"closure_layout must be 'dense' or 'tiled', got "
                 f"{closure_layout!r}")
-        if closure_layout == "tiled":
-            raise NotImplementedError(TILED_NOT_PORTED)
         dev = resolve_device(device)
         policy = dispatch.policy_for_method(method, policy)
         method = dispatch.method_name(policy)
         state = dag_mod.new_state(capacity, device=dev)
         # a fresh engine's cache is exact: the empty graph's strict
         # closure is all-zeros
-        cache = closure_cache.empty_cache(capacity, device=dev)
-        del mesh, closure_region
+        if closure_layout == "tiled":
+            cache = closure_cache.empty_tiled_cache(capacity, closure_region,
+                                                    device=dev)
+            closure_region = cache.closure.region
+        else:
+            cache = closure_cache.empty_cache(capacity, device=dev)
+        del mesh
         config = EngineConfig(capacity=capacity, backend=backend,
                               method=method, subbatches=subbatches,
                               matmul_impl=matmul_impl, policy=policy,
                               closure_update_impl=closure_update_impl,
                               closure_delete_impl=closure_delete_impl,
-                              auto_grow=auto_grow, device=dev)
+                              auto_grow=auto_grow,
+                              closure_layout=closure_layout,
+                              closure_region=closure_region, device=dev)
         return cls(state, _zero_ema(config.n_devices), cache, config)
 
     @classmethod
@@ -279,27 +330,36 @@ class DagEngine:
         Without an explicit ``cache`` the closure cache starts DIRTY."""
         ema = _zero_ema(config.n_devices) if depth_ema is None else depth_ema
         if cache is None:
-            cache = closure_cache.empty_cache(config.capacity, dirty=True,
-                                              device=state.device)
+            if config.closure_layout == "tiled":
+                cache = closure_cache.empty_tiled_cache(
+                    config.capacity, config.closure_region, dirty=True,
+                    device=state.device)
+            else:
+                cache = closure_cache.empty_cache(config.capacity, dirty=True,
+                                                  device=state.device)
         return cls(state, ema, cache, config, epoch)
 
     def refresh_cache(self) -> "DagEngine":
-        """Rebuild the closure cache from the committed graph iff dirty."""
+        """Rebuild the closure cache from the committed graph iff dirty; on
+        the tiled layout the window is first widened to cover every
+        committed edge."""
+        eng = self._region_synced()
         closure, _ = closure_cache.refresh_closure(
-            self.cache.closure, self.cache.dirty, self.state.adj,
-            self.config.matmul_impl)
-        return DagEngine(self.state, self.depth_ema,
-                         ClosureCache(closure, False, self.cache.repair_ema),
-                         self.config, self.epoch)
+            eng.cache.closure, eng.cache.dirty, eng.state.adj,
+            eng.config.matmul_impl)
+        return DagEngine(eng.state, eng.depth_ema,
+                         ClosureCache(closure, False, eng.cache.repair_ema),
+                         eng.config, eng.epoch)
 
     def snapshot(self) -> "snapshot_view.EngineSnapshot":
         """The versioned wait-free read view of this session (epoch + slab
         view + clean packed closure); a dirty cache is rebuilt for the
         view.  Shares the engine's tensors, which are never written."""
+        eng = self._region_synced()
         closure, _ = closure_cache.refresh_closure(
-            self.cache.closure, self.cache.dirty, self.state.adj,
-            self.config.matmul_impl)
-        return snapshot_view.EngineSnapshot(self.epoch, self.state, closure)
+            eng.cache.closure, eng.cache.dirty, eng.state.adj,
+            eng.config.matmul_impl)
+        return snapshot_view.EngineSnapshot(eng.epoch, eng.state, closure)
 
     def with_options(self, *, method: Optional[str] = None,
                      subbatches: Optional[int] = None,
@@ -337,6 +397,93 @@ class DagEngine:
         cache = closure_cache.grow_cache(self.cache, new_capacity)
         config = dataclasses.replace(cfg, capacity=new_capacity)
         return DagEngine(state, self.depth_ema, cache, config, self.epoch)
+
+    # ------------------------------------------------ tiled window sizing
+
+    @property
+    def closure_region(self) -> Optional[int]:
+        """Live tiles-window size (None on the dense layout)."""
+        closure = self.cache.closure
+        return closure.region if closure_cache.is_tiled(closure) else None
+
+    def _with_region(self, new_region: int) -> "DagEngine":
+        """Engine with the tiles window widened to ``new_region`` (no-op on
+        dense or when already wide enough): zero-padding of the tiles;
+        closure bits, dirty flag and epoch ride through."""
+        closure = self.cache.closure
+        if not closure_cache.is_tiled(closure):
+            return self
+        nr = closure_cache.align_region(new_region, self.capacity)
+        if nr <= closure.region:
+            return self
+        cache = self.cache._replace(
+            closure=closure_cache.grow_region(closure, nr))
+        return DagEngine(self.state, self.depth_ema, cache, self.config,
+                         self.epoch)
+
+    def grow_region(self, new_region: int) -> "DagEngine":
+        """Widen the tiled closure window so slots below ``new_region`` fold
+        into the cache (identity on dense or when already wide enough)."""
+        return self._with_region(new_region)
+
+    def _live_high_water(self) -> int:
+        """max live slot + 1 (0 when empty), reduced on the device."""
+        alive = self.state.alive
+        idx = torch.arange(1, alive.shape[0] + 1, device=alive.device)
+        return int(torch.max(torch.where(alive, idx, 0)))
+
+    def _pre_widened(self, n_new_slots: int) -> "DagEngine":
+        """Widen the tiles window, doubling, before a call that may place
+        ``n_new_slots`` more vertices (slots fill lowest-free-first, so the
+        post-call high-water is at most the live high-water + n_new).
+        Identity on dense and inside `as_compiled`."""
+        closure = self.cache.closure
+        if not closure_cache.is_tiled(closure) or _COMPILED.get():
+            return self
+        need = self._live_high_water() + int(n_new_slots)
+        if need <= closure.region:
+            return self
+        return self._with_region(max(2 * closure.region, need))
+
+    def _region_synced(self) -> "DagEngine":
+        """Engine whose tiles window covers every committed adjacency bit
+        (identity on dense, inside `as_compiled`, or when already
+        confined) — the precondition for a tiled cache refresh."""
+        closure = self.cache.closure
+        if not closure_cache.is_tiled(closure) or _COMPILED.get() \
+                or closure_cache.region_confined(self.state.adj,
+                                                 closure.region):
+            return self
+        return self._with_region(_bit_high_water(self.state.adj))
+
+    def with_closure_layout(self, layout: str,
+                            region: int = 0) -> "DagEngine":
+        """Re-represent the closure cache in ``layout`` ("dense" |
+        "tiled") without touching the graph or the epoch.  The tiled window
+        is the smallest that covers every closure and adjacency bit (and
+        ``region``)."""
+        cfg = self.config
+        if layout == cfg.closure_layout:
+            return self
+        cache = self.cache
+        dense = closure_cache.dense_of(cache.closure)
+        if layout == "tiled":
+            need = max(int(region), closure_cache.TILE,
+                       _bit_high_water(dense | self.state.adj))
+            tiled = closure_cache.tiled_of(
+                dense, closure_cache.align_region(need, cfg.capacity))
+            new_cache = cache._replace(closure=tiled)
+            config = dataclasses.replace(cfg, closure_layout="tiled",
+                                         closure_region=tiled.region)
+        elif layout == "dense":
+            new_cache = cache._replace(closure=dense)
+            config = dataclasses.replace(cfg, closure_layout="dense",
+                                         closure_region=0)
+        else:
+            raise ValueError(
+                f"closure_layout must be 'dense' or 'tiled', got {layout!r}")
+        return DagEngine(self.state, self.depth_ema, new_cache, config,
+                         self.epoch)
 
     def _grown_for_overflow(self, result: "OpResult") -> Optional["DagEngine"]:
         """Under ``auto_grow``, the PRE-call engine doubled until the adds
@@ -398,11 +545,14 @@ class DagEngine:
             self.config.policy, "use_incremental", False)
 
     def _prefer_repair_fn(self):
-        """The policy's delete dispatch arm closed over the capacity."""
+        """The policy's delete dispatch arm closed over the capacity — over
+        the live window's rows on the tiled layout, where a rebuild costs
+        O(region) rows."""
         hook = getattr(self.config.policy, "prefer_delete_repair", None)
         if hook is None:
             return None
-        capacity = self.config.capacity
+        region = self.closure_region
+        capacity = self.config.capacity if region is None else region
 
         def prefer(n_affected, depth_hint):
             return hook(n_affected, capacity, depth_hint=depth_hint)
@@ -449,14 +599,17 @@ class DagEngine:
         ok=False and count into ``result.n_overflow`` (unless
         ``auto_grow``, which doubles capacity and re-runs the call)."""
         keys = self._keys(keys)
-        state, ok = dag_mod.add_vertices(self.state, keys, valid=valid)
-        res = OpResult(ok, self._overflow_delta(state),
-                       ReachStats.zeros(self.config.n_devices))
-        grown = self._grown_for_overflow(res)
+        # widen a tiled window so this batch's slots can fold into the
+        # cache (no-op on dense and inside as_compiled)
+        eng = self._pre_widened(keys.shape[0])
+        state, ok = dag_mod.add_vertices(eng.state, keys, valid=valid)
+        res = OpResult(ok, eng._overflow_delta(state),
+                       ReachStats.zeros(eng.config.n_devices))
+        grown = eng._grown_for_overflow(res)
         if grown is not None:
             return grown.add_vertices(keys, valid=valid)
         # vertex adds never touch adjacency: a clean cache stays clean
-        return self._with_state(state, self.cache), res
+        return eng._with_state(state, eng.cache), res
 
     def remove_vertices(self, keys, valid=None):
         """RemoveVertex batch (incident edges cleared in-step) -> (engine,
@@ -528,7 +681,7 @@ class DagEngine:
                                                 to_keys, cfg.matmul_impl)
             f_slot, f_found = dag_mod.lookup_slots(self.state, from_keys)
             t_slot, t_found = dag_mod.lookup_slots(self.state, to_keys)
-            return f_found & t_found & bitset.bit_get(
+            return f_found & t_found & closure_cache.closure_bit_get(
                 self.cache.closure, f_slot, t_slot)
         if fixed == "closure":
             return reachability.path_exists(self.state, from_keys, to_keys,
@@ -541,8 +694,14 @@ class DagEngine:
                                         cfg.matmul_impl)
 
     def is_acyclic(self) -> torch.Tensor:
-        return reachability.is_acyclic(self.state.adj,
-                                       self.config.matmul_impl)
+        """True iff the graph has no cycle.  On the tiled layout, when every
+        edge lies in the window, only the window is squared (its cycles
+        are all the graph's): the answer is the reference's, without
+        squaring the whole slab."""
+        adj, region = self.state.adj, self.closure_region
+        if region is not None and closure_cache.region_confined(adj, region):
+            adj = closure_cache.region_window(adj, region)
+        return reachability.is_acyclic(adj, self.config.matmul_impl)
 
     def live_vertex_count(self) -> torch.Tensor:
         return dag_mod.live_vertex_count(self.state)
@@ -556,8 +715,11 @@ class DagEngine:
         """Apply a typed mixed batch -> (engine, OpResult), with the
         documented linearization.  ``acyclic=False`` degrades ADD_EDGE
         rows to plain directed-graph inserts."""
-        cfg = self.config
         batch = OpBatch(*(self._keys(x) for x in batch))
+        if self.closure_region is not None:
+            self = self._pre_widened(
+                int(torch.sum(batch.op == ADD_VERTEX)))
+        cfg = self.config
         method, prefer = self._dispatch_hooks()
         common = dict(acyclic=acyclic, subbatches=cfg.subbatches,
                       method=method, matmul_impl=cfg.matmul_impl,

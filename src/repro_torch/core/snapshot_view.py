@@ -2,7 +2,8 @@
 
 Port of `repro.core.snapshot_view`.  `EngineSnapshot` holds the epoch
 that names the graph version, the `DagState` slab view and the CLEAN
-packed transitive closure — references to the engine's tensors, which
+packed transitive closure (the dense slab or a
+`closure_cache.TiledClosure`) — references to the engine's tensors, which
 the engine never writes again, so a snapshot costs no copy and later
 writer mutations (new engines) never change it.  Every read is a bit
 read: ``reachable`` does zero boolean-matmul row products.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import bitset
+from repro_torch.core import closure_cache
 from repro_torch.core import dag as dag_mod
 
 
@@ -20,11 +21,12 @@ class EngineSnapshot:
 
     __slots__ = ("epoch", "state", "closure")
 
-    def __init__(self, epoch: int, state: dag_mod.DagState,
-                 closure: torch.Tensor):
+    def __init__(self, epoch: int, state: dag_mod.DagState, closure):
         self.epoch = epoch      # engine version at capture
         self.state = state      # DagState slab view (keys/alive/adj)
-        self.closure = closure  # clean packed strict closure int32[C, W]
+        # clean packed strict closure: dense int32[C, W], or a
+        # closure_cache.TiledClosure (region-windowed tiles + summary)
+        self.closure = closure
 
     def __repr__(self):
         return (f"EngineSnapshot(epoch={self.epoch}, "
@@ -51,7 +53,8 @@ class EngineSnapshot:
                                                self._keys(from_keys))
         t_slot, t_found = dag_mod.lookup_slots(self.state,
                                                self._keys(to_keys))
-        hit = f_found & t_found & bitset.bit_get(self.closure, f_slot, t_slot)
+        hit = f_found & t_found & closure_cache.closure_bit_get(
+            self.closure, f_slot, t_slot)
         if not with_stats:
             return hit
         from repro_torch.core.engine import ReachStats  # circular at import
@@ -66,8 +69,9 @@ class EngineSnapshot:
     def is_acyclic(self) -> torch.Tensor:
         """Answered off the closure diagonal in O(C) bit reads."""
         idx = torch.arange(self.capacity, dtype=torch.int32,
-                           device=self.closure.device)
-        return ~torch.any(bitset.bit_get(self.closure, idx, idx))
+                           device=self.state.device)
+        return ~torch.any(closure_cache.closure_bit_get(self.closure, idx,
+                                                        idx))
 
     def _keys(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.int32,

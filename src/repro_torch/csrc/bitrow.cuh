@@ -1,5 +1,5 @@
 // Shared warp routine of the packed boolean-product kernels (bitmm,
-// closure_update, closure_delete).
+// closure_update, closure_delete and their tiled variants).
 //
 // Layout: LSB-first 32-bit words; column j of a row lives in word j >> 5,
 // bit j & 31.  One warp owns one output row m and 32 consecutive output
@@ -60,6 +60,27 @@ __device__ __forceinline__ bool warp_tile(int m, int wn, int* row, int* n) {
   *row = static_cast<int>(warp / chunks);
   *n = static_cast<int>(warp % chunks) * 32 + (threadIdx.x & 31);
   return true;
+}
+
+// The tiled kernels' block: one 32-row band x 32 output words, one warp
+// per row (warp w owns row band * 32 + w, lane = word).
+constexpr int kBandThreads = 32 * 32;
+
+// Per-tile occupancy of one band, in the same pass as the output: every
+// thread of the block holds its output word ``acc`` (row = warp, word =
+// n); after the call occ_row[n] = 1 iff any of the band's 32 rows has a
+// non-zero word n, for every n < wn of this block.  All threads of the
+// block must call it (it holds two barriers).
+__device__ __forceinline__ void store_band_occupancy(uint32_t acc, int n,
+                                                     int wn,
+                                                     uint32_t* occ_row) {
+  __shared__ uint32_t any_set[32];
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) any_set[lane] = 0u;
+  __syncthreads();
+  if (acc != 0u) atomicOr(&any_set[lane], 1u);
+  __syncthreads();
+  if (threadIdx.x < 32 && n < wn) occ_row[n] = any_set[lane];
 }
 
 inline unsigned blocks_for(int m, int wn) {

@@ -1,24 +1,29 @@
 """Carry an engine's state across the two packages, as numpy arrays.
 
 The leaves are the dynamic state of `repro.core.engine.DagEngine` (local
-backend, dense closure): ``keys``, ``alive``, ``adj``, ``n_overflow``,
-``depth_ema``, ``cache.closure``, ``cache.dirty``, ``cache.repair_ema``
-and ``epoch``.  Packed words cross as int32 arrays holding the uint32 bit
-pattern (a ``uint32`` array is taken with ``.view(np.int32)``).  The
-caller flattens and rebuilds the JAX side with numpy; this module never
-imports JAX.
+backend): ``keys``, ``alive``, ``adj``, ``n_overflow``, ``depth_ema``,
+the closure cache and ``epoch``.  The cache crosses as ``cache.closure``
+on the dense layout, and as ``cache.closure.tiles`` and
+``cache.closure.summary`` (the two leaves of a `TiledClosure`) on the
+tiled one, followed by ``cache.dirty`` and ``cache.repair_ema``.  Packed
+words cross as int32 arrays holding the uint32 bit pattern (a ``uint32``
+array is taken with ``.view(np.int32)``).  The caller flattens and
+rebuilds the JAX side with numpy; this module never imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.closure_cache import ClosureCache
+from repro_torch.core.closure_cache import ClosureCache, TiledClosure
 from repro_torch.core.dag import DagState
 from repro_torch.core.engine import DagEngine
 
 LEAVES = ("keys", "alive", "adj", "n_overflow", "depth_ema", "cache.closure",
           "cache.dirty", "cache.repair_ema", "epoch")
+TILED_LEAVES = ("keys", "alive", "adj", "n_overflow", "depth_ema",
+                "cache.closure.tiles", "cache.closure.summary", "cache.dirty",
+                "cache.repair_ema", "epoch")
 
 
 def _words(a: np.ndarray) -> np.ndarray:
@@ -29,14 +34,21 @@ def _words(a: np.ndarray) -> np.ndarray:
 def engine_from_arrays(arrays: dict, config_kwargs: dict | None = None,
                        device=None) -> DagEngine:
     """A port engine on ``device`` (None: the card) holding the leaves in
-    ``arrays`` (every name of `LEAVES`), configured by ``config_kwargs``
-    (the `DagEngine.create` keywords; the capacity is the leaves')."""
-    missing = [k for k in LEAVES if k not in arrays]
+    ``arrays`` (every name of `LEAVES`, or of `TILED_LEAVES` for a tiled
+    cache), configured by ``config_kwargs`` (the `DagEngine.create`
+    keywords; the capacity, and on the tiled layout the window, are the
+    leaves')."""
+    tiled = "cache.closure.tiles" in arrays
+    names = TILED_LEAVES if tiled else LEAVES
+    missing = [k for k in names if k not in arrays]
     if missing:
         raise KeyError(f"missing engine leaves: {missing}")
     keys = np.asarray(arrays["keys"])
-    eng = DagEngine.create(int(keys.shape[0]), device=device,
-                           **(config_kwargs or {}))
+    kwargs = dict(config_kwargs or {})
+    if tiled:
+        kwargs.update(closure_layout="tiled", closure_region=int(
+            np.asarray(arrays["cache.closure.tiles"]).shape[0]))
+    eng = DagEngine.create(int(keys.shape[0]), device=device, **kwargs)
     dev = eng.device
 
     def on(a, dtype):
@@ -48,9 +60,14 @@ def engine_from_arrays(arrays: dict, config_kwargs: dict | None = None,
         adj=on(_words(arrays["adj"]), torch.int32),
         n_overflow=on(np.asarray(arrays["n_overflow"], np.int32),
                       torch.int32).reshape(()))
+    if tiled:
+        closure = TiledClosure(
+            on(_words(arrays["cache.closure.tiles"]), torch.int32),
+            on(_words(arrays["cache.closure.summary"]), torch.int32))
+    else:
+        closure = on(_words(arrays["cache.closure"]), torch.int32)
     cache = ClosureCache(
-        on(_words(arrays["cache.closure"]), torch.int32),
-        bool(np.asarray(arrays["cache.dirty"])),
+        closure, bool(np.asarray(arrays["cache.dirty"])),
         torch.as_tensor(np.array(arrays["cache.repair_ema"], np.float32)
                         ).reshape(()))
     depth_ema = torch.as_tensor(np.array(arrays["depth_ema"], np.float32)
@@ -62,14 +79,19 @@ def engine_from_arrays(arrays: dict, config_kwargs: dict | None = None,
 def engine_to_arrays(engine: DagEngine) -> dict:
     """The engine's leaves as numpy arrays (packed words as int32)."""
     st, cache = engine.state, engine.cache
-    return {
+    out = {
         "keys": st.keys.cpu().numpy(),
         "alive": st.alive.cpu().numpy(),
         "adj": st.adj.cpu().numpy(),
         "n_overflow": st.n_overflow.cpu().numpy(),
         "depth_ema": engine.depth_ema.cpu().numpy(),
-        "cache.closure": cache.closure.cpu().numpy(),
-        "cache.dirty": np.asarray(cache.dirty),
-        "cache.repair_ema": cache.repair_ema.cpu().numpy(),
-        "epoch": np.asarray(engine.epoch, np.int32),
     }
+    if isinstance(cache.closure, TiledClosure):
+        out["cache.closure.tiles"] = cache.closure.tiles.cpu().numpy()
+        out["cache.closure.summary"] = cache.closure.summary.cpu().numpy()
+    else:
+        out["cache.closure"] = cache.closure.cpu().numpy()
+    out.update({"cache.dirty": np.asarray(cache.dirty),
+                "cache.repair_ema": cache.repair_ema.cpu().numpy(),
+                "epoch": np.asarray(engine.epoch, np.int32)})
+    return out

@@ -59,3 +59,27 @@ def closure_delete(r_packed, s_packed, affected_packed, *,
         return _ref.closure_delete_ref(r_packed, s_packed, affected_packed)
     return _closure_delete.closure_delete(r_packed, s_packed,
                                           affected_packed)
+
+
+def closure_update_tiled(tiles_packed, mask_packed, rows_packed, *,
+                         impl: str = "auto"):
+    """Rank-B fold on a tiled closure's region window, plus the output's
+    per-32x32-tile occupancy: -> (tiles' (R, R/32), occ (R/32, R/32) 0/1;
+    pack occ into the summary with `closure_cache.summary_from_occ`)."""
+    if _resolve(impl, tiles_packed) == "ref":
+        return _ref.closure_update_tiled_ref(tiles_packed, mask_packed,
+                                             rows_packed)
+    return _closure_update.closure_update_tiled(tiles_packed, mask_packed,
+                                                rows_packed)
+
+
+def closure_delete_tiled(r_packed, s_packed, affected_packed, *,
+                         impl: str = "auto"):
+    """Delete-repair hop on a tiled closure's region window, plus the
+    output's per-32x32-tile occupancy: -> (r' (R, R/32), occ (R/32, R/32)
+    0/1) — the tiled layout's hop of `closure_cache.masked_delete_scan`."""
+    if _resolve(impl, r_packed) == "ref":
+        return _ref.closure_delete_tiled_ref(r_packed, s_packed,
+                                             affected_packed)
+    return _closure_delete.closure_delete_tiled(r_packed, s_packed,
+                                                affected_packed)

@@ -1,6 +1,6 @@
 """Plain torch versions of the hand-written kernels (the correctness
 references), mirroring `repro.kernels.ref`: unpack to float32, matmul,
-threshold, pack.  The CPU path of `kernels/ops.py` runs these; on the card
+threshold, pack; the tiled variants add the output's per-tile occupancy.  The CPU path of `kernels/ops.py` runs these; on the card
 only the comparisons in `chip_smoke.py` and the cuda-marked tests do."""
 from __future__ import annotations
 
@@ -44,3 +44,20 @@ def tile_occupancy_ref(tiles_packed: torch.Tensor) -> torch.Tensor:
     r, wr = tiles_packed.shape
     return torch.any(tiles_packed.reshape(r // 32, 32, wr) != 0,
                      dim=1).to(torch.int32)
+
+
+def closure_update_tiled_ref(tiles_packed: torch.Tensor,
+                             mask_packed: torch.Tensor,
+                             rows_packed: torch.Tensor):
+    """Tiled rank-B fold: the dense update on the region window plus the
+    output's per-tile occupancy -> (tiles' (R, R/32), occ (R/32, R/32))."""
+    out = closure_update_ref(tiles_packed, mask_packed, rows_packed)
+    return out, tile_occupancy_ref(out)
+
+
+def closure_delete_tiled_ref(r_packed: torch.Tensor, s_packed: torch.Tensor,
+                             affected_packed: torch.Tensor):
+    """Tiled delete-repair hop: the dense masked hop on the region window
+    plus the output's per-tile occupancy -> (r' (R, R/32), occ)."""
+    out = closure_delete_ref(r_packed, s_packed, affected_packed)
+    return out, tile_occupancy_ref(out)

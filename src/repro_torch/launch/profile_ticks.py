@@ -2,11 +2,15 @@
 
     python -m repro_torch.launch.profile_ticks --profile delheavy \\
         --capacity 16384 --batch 1024 --warm 8 --ticks 4
+    python -m repro_torch.launch.profile_ticks --profile mixed \\
+        --capacity 131072 --batch 128 --method incremental \\
+        --closure-layout tiled
 
-Replays ``--warm`` ticks of an SGT stream (`launch/serve.py`, method
-"auto"), then runs ``--ticks`` more twice from the same engine (engines
-are immutable, so both runs do the same work): once timed with no
-profiler, for the wall time per tick, and once under `torch.profiler`
+Replays ``--warm`` ticks of an SGT stream (`launch/serve.py`; method
+"auto" and the dense closure unless ``--method`` / ``--closure-layout``
+say otherwise), then runs ``--ticks`` more twice from the same engine
+(engines are immutable, so both runs do the same work): once timed with
+no profiler, for the wall time per tick, and once under `torch.profiler`
 (CPU and CUDA activities), for the device time.  Prints one JSON line:
 wall and device-busy milliseconds per tick, the device's idle share, the
 host-side launches and copies per tick, and the device kernels that take
@@ -22,6 +26,7 @@ import time
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.core.dispatch import METHODS
 from repro_torch.core.engine import DagEngine, resolve_device
 from repro_torch.launch import serve
 
@@ -34,7 +39,8 @@ def _device_us(evt) -> float:
 
 
 def profile_ticks(profile_name: str, capacity: int, batch: int, warm: int,
-                  ticks: int, device=None) -> dict:
+                  ticks: int, device=None, method: str = "auto",
+                  closure_layout: str = "dense") -> dict:
     dev = resolve_device(device)
     if profile_name == "steady":
         tick, inputs = serve.steady_tick, serve._sgt_tick_inputs(
@@ -45,7 +51,8 @@ def profile_ticks(profile_name: str, capacity: int, batch: int, warm: int,
     else:
         tick, inputs = serve.churn_tick, serve._sgt_churn_inputs(
             capacity, batch, warm + ticks, 0, profile_name)
-    eng0 = DagEngine.create(capacity, method="auto", device=dev)
+    eng0 = DagEngine.create(capacity, method=method,
+                            closure_layout=closure_layout, device=dev)
     for xs in inputs[:warm]:
         eng0, _ = tick(eng0, serve.on_device(dev, xs))
     serve._sync(dev)
@@ -72,6 +79,7 @@ def profile_ticks(profile_name: str, capacity: int, batch: int, warm: int,
                  if e.key in ("cudaMemcpyAsync", "cudaMemcpy"))
     top = sorted(on_device, key=lambda e: -_device_us(e))[:12]
     return {"profile": profile_name, "capacity": capacity, "batch": batch,
+            "method": method, "closure_layout": closure_layout,
             "ticks": ticks, "wall_ms_per_tick": wall_ms,
             "device_busy_ms_per_tick": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -91,9 +99,13 @@ def main(argv=None) -> int:
     p.add_argument("--warm", type=int, default=8)
     p.add_argument("--ticks", type=int, default=4)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--method", default="auto", choices=METHODS)
+    p.add_argument("--closure-layout", default="dense",
+                   choices=("dense", "tiled"))
     args = p.parse_args(argv)
     print(json.dumps(profile_ticks(args.profile, args.capacity, args.batch,
-                                   args.warm, args.ticks, args.device)))
+                                   args.warm, args.ticks, args.device,
+                                   args.method, args.closure_layout)))
     return 0
 
 

@@ -11,7 +11,9 @@ seed gives the same workload in both packages.
 
 Runs on the card unless ``--device cpu`` is given.  A tick ends in a
 device synchronisation, so the tick times are wall times of finished
-work.
+work.  The reference jits its tick bodies; the port's run inside
+`core.engine.as_compiled`, so a tiled closure window keeps its size for
+the whole run, as the reference's does.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import closure_cache
 from repro_torch.core.dispatch import METHODS, FixedPolicy, validate_choice
-from repro_torch.core.engine import DagEngine, resolve_device
+from repro_torch.core.engine import DagEngine, as_compiled, resolve_device
 
 PROFILES = ("steady", "insheavy", "delheavy", "mixed")
 
@@ -118,11 +121,12 @@ def steady_tick(eng: DagEngine, xs):
     conflicts, retirement of the aborted sources, finishes.  Returns
     (engine, (begin, conflict, abort, finish) `OpResult`s)."""
     begins, src, dst, fins = xs
-    eng, began = eng.add_vertices(begins)
-    eng, conf = eng.add_edges_acyclic(src, dst)
-    live = eng.contains(src) & eng.contains(dst)
-    eng, rem = eng.remove_vertices(src, valid=live & ~conf.ok)
-    eng, fin = eng.remove_vertices(fins)
+    with as_compiled():
+        eng, began = eng.add_vertices(begins)
+        eng, conf = eng.add_edges_acyclic(src, dst)
+        live = eng.contains(src) & eng.contains(dst)
+        eng, rem = eng.remove_vertices(src, valid=live & ~conf.ok)
+        eng, fin = eng.remove_vertices(fins)
     return eng, (began, conf, rem, fin)
 
 
@@ -130,8 +134,9 @@ def insert_heavy_tick(eng: DagEngine, xs):
     """One insert-heavy tick: begins + cycle-checked conflicts.  Returns
     (engine, (begin, conflict) `OpResult`s)."""
     begins, src, dst = xs
-    eng, began = eng.add_vertices(begins)
-    eng, conf = eng.add_edges_acyclic(src, dst)
+    with as_compiled():
+        eng, began = eng.add_vertices(begins)
+        eng, conf = eng.add_edges_acyclic(src, dst)
     return eng, (began, conf)
 
 
@@ -140,10 +145,11 @@ def churn_tick(eng: DagEngine, xs):
     retirements, finishes.  Returns (engine, (begin, conflict, removal,
     finish) `OpResult`s)."""
     begins, src, dst, del_src, del_dst, fins = xs
-    eng, began = eng.add_vertices(begins)
-    eng, conf = eng.add_edges_acyclic(src, dst)
-    eng, rem = eng.remove_edges(del_src, del_dst)
-    eng, fin = eng.remove_vertices(fins)
+    with as_compiled():
+        eng, began = eng.add_vertices(begins)
+        eng, conf = eng.add_edges_acyclic(src, dst)
+        eng, rem = eng.remove_edges(del_src, del_dst)
+        eng, fin = eng.remove_vertices(fins)
     return eng, (began, conf, rem, fin)
 
 
@@ -318,7 +324,11 @@ def serve_sgt_churn(capacity: int = 1024, batch: int = 256,
     vertex finishes every tick, with the exact row-products (cycle
     checks, lazy rebuilds and delete repairs) accumulated.
     ``method="incremental_rebuild"`` pins the invalidate+rebuild baseline
-    (`FixedPolicy("incremental", use_delete_repair=False)`)."""
+    (`FixedPolicy("incremental", use_delete_repair=False)`).
+    ``closure_layout`` / ``closure_region`` pick the cache representation;
+    ``closure_bytes`` is the resident closure (tiles plus summary on the
+    tiled layout).  With ``collect_decisions`` the result also holds every
+    accept bit, in tick order."""
     device = resolve_device(device)
     kw = dict(closure_layout=closure_layout, closure_region=closure_region,
               device=device)
@@ -347,8 +357,7 @@ def serve_sgt_churn(capacity: int = 1024, batch: int = 256,
     out = {"ticks": ticks, "ops_per_s": batch / med, "tick_us": med * 1e6,
            "accepted": n_acc, "row_products": rp, "n_repairs": nr,
            "cache_clean": not eng.cache.dirty,
-           "closure_bytes": eng.cache.closure.numel()
-           * eng.cache.closure.element_size(),
+           "closure_bytes": closure_cache.closure_nbytes(eng.cache.closure),
            "engine": eng}
     if collect_decisions:
         out["decisions"] = np.concatenate([ok.cpu().numpy() for ok in oks])

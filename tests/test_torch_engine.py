@@ -292,7 +292,11 @@ def test_create_defaults_to_the_card():
 def test_unported_options_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine.create(64, backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine.create(64, closure_layout="tiled", device="cpu")
+    # the tiled layout is ported (tests/test_torch_tiled_engine.py); an
+    # unknown layout still raises
+    assert TEngine.create(64, closure_layout="tiled",
+                          device="cpu").closure_region == 64
+    with pytest.raises(ValueError, match="closure_layout"):
+        TEngine.create(64, closure_layout="sparse", device="cpu")
     with pytest.raises(ValueError, match="nearest valid method"):
         TEngine.create(64, method="incremntal", device="cpu")
