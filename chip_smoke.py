@@ -5,8 +5,9 @@
 Phases, one status line each; the first failure raises and exits
 non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
-  2. build      — nvcc builds kernels B1-B5 from src/repro_torch/csrc;
-                  registers and shared memory per kernel (-Xptxas -v).
+  2. build      — nvcc builds kernels B1-B5 and B7 from
+                  src/repro_torch/csrc; registers and shared memory per
+                  kernel (-Xptxas -v).
   3. kernels    — every kernel bit-identical to its plain torch version
                   at the shapes and densities of tests/test_kernels.py
                   (B1-B3) and over windows R in {32, 96, 1024, 4096},
@@ -17,14 +18,28 @@ non-zero:
                   version and a library yardstick, beside the least time
                   the card could take (bound); kernel_ms is per call
                   (CUDA events), device_ms the kernel alone
-                  (torch.profiler).
+                  (torch.profiler).  B7 (flash attention) against its
+                  plain version in bf16, f16 and f32 at the LM main path's
+                  shape (4, 12, 2048, 128) over 2 KV heads, a ragged T,
+                  a decode-like Tq=1 / Tk=2080, Tq < Tk and Tq > Tk,
+                  non-causal, and d = 64 and 16, every element within
+                  its rounding bound (ATTN_TOL: bf16 2^-7 |want| +
+                  2^-8 sum_j p_j |v_j|, f16 2^-10 and 2^-11, capped at
+                  2e-2 / 4e-3; f32 1e-4);
+                  the same bound must reject the main shape's output
+                  with one 64-key tile left out; its library yardstick
+                  is one scaled_dot_product_attention call.
   4. parity     — on the card (kernels) and on the CPU (plain versions),
                   compared after every call (ok bits, adjacency, closure
                   words or tiles and summary, dirty flag, epoch,
                   ReachStats): the delheavy and steady SGT streams at
                   C=2048, B=256, 8 ticks (dense), and the mixed churn
                   stream at C=2048, B=128, 8 ticks on the tiled layout
-                  with the default window and a 64-slot one.
+                  with the default window and a 64-slot one; and the LM
+                  (qwen2-1.5b at smoke width, float32, TF32 off): the
+                  prefill's last-token logits and KV cache within 1e-4
+                  of the CPU's and identical greedy tokens over 8 decode
+                  steps, from the same params and prompt.
   5. main path  — `repro_torch.launch.serve` at C=16384, B=1024 under the
                   CLI's default method ("auto"): steady (engine api) 10
                   ticks, delheavy 10 ticks, insheavy 6 ticks, each
@@ -38,7 +53,15 @@ non-zero:
                   C=16384 the tiled layout's equal the dense layout's;
                   cache_matches_state and is_acyclic hold (the tiled
                   checks square the window once region_confined holds).
-                  Fails unless every kernel launched.
+                  Fails unless every kernel of B1-B5 launched.
+  6. lm         — the LM main path, `serve_lm` at full width
+                  (qwen2-1.5b, bf16, batch 4, prompt 2048, 32 greedy
+                  tokens) after a warm-up call, counters zeroed just
+                  before it: prefill ms, decode ms per token, tokens/s,
+                  peak memory, B7's launches (28, one per layer of the
+                  prefill) and its share of a profiled prefill; a
+                  profiled decode step (device busy, idle share); logits
+                  finite, every token inside the vocab.
 The line before the last is the per-kernel JSON record, the last line
 the device record.  Imports only the port, torch and numpy.
 """
@@ -57,11 +80,28 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8 tensor
+BF16_FLOP_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor
 C_FULL, B_FULL = 16384, 1024    # the dense layout's main path
 C_TILED, B_TILED, T_TILED = 131072, 128, 10   # the tiled layout's main path
 R_TILED = 1024                  # its window (closure_cache.DEFAULT_REGION)
 C_PARITY, B_PARITY, T_PARITY = 2048, 256, 8
 B_PARITY_TILED = 128
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen2-1.5b", 4, 2048, 32
+LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = 4, 64, 8
+# B7 against its plain version, per element, as (out, prob, atol, cap):
+# |got - want| <= min(out |want| + prob sum_j p_j |v_j| + atol, cap).
+# Both compute in float32 from the same inputs.  Both round a bf16 / f16
+# output to 8 / 11 significant bits: together at most one ulp, 2^-7 /
+# 2^-10 of the value.  The kernel also rounds each probability p_j to
+# that type before the P.V product, by at most half an ulp (2^-8 / 2^-11
+# of p_j), which moves the sum by at most that share of sum_j p_j |v_j|.
+# atol covers float32 summation order; cap is each type's absolute
+# bound.
+ATTN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -8, 1e-6, 2e-2),
+            torch.float16: (2 ** -10, 2 ** -11, 1e-6, 4e-3),
+            torch.float32: (0.0, 0.0, 1e-4, 1e-4)}
+BIT_KERNELS = ("bitmm", "closure_update", "closure_delete",
+               "closure_update_tiled", "closure_delete_tiled")
 
 KERNELS = {
     "bitmm": ("src/repro_torch/csrc/bitmm.cu", "src/repro/kernels/bitmm.py:50"),
@@ -73,6 +113,8 @@ KERNELS = {
                              "src/repro/kernels/closure_update.py:120"),
     "closure_delete_tiled": ("src/repro_torch/csrc/closure_delete_tiled.cu",
                              "src/repro/kernels/closure_delete.py:134"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flashattn.py:66"),
 }
 
 
@@ -122,11 +164,15 @@ def phase_build():
         if m:
             kernel = next((k for k in KERNELS if f"{k}_kernel" in m.group(1)),
                           m.group(1))
+            t = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E",
+                          m.group(1))
+            if t:   # one instantiation per (type, head dim)
+                kernel = f"flash_attention<{t.group(1)}, d={t.group(2)}>"
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             smem = re.search(r"(\d+) bytes smem", line)
             say("build", f"{kernel}: {m.group(1)} registers, "
-                f"{smem.group(1) if smem else 0} bytes shared memory")
+                f"{smem.group(1) if smem else 0} bytes static shared memory")
         if "spill" in line and kernel:
             say("build", f"{kernel}: {line.strip()}")
 
@@ -186,11 +232,12 @@ def popcount_total(x: torch.Tensor) -> int:
     return int(torch.sum(bitset.popcount(x), dtype=torch.int64))
 
 
-def bound(nbytes: int, ops: int):
+def bound(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth
-    and the operations over the int8 tensor-core peak."""
+    and the operations over the tensor-core peak ``ops_per_s`` (int8 for
+    the bit kernels)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -210,7 +257,7 @@ def phase_kernels():
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    err = {k: 0.0 for k in KERNELS}
+    err = {k: 0.0 for k in BIT_KERNELS}
     n_cases = 0
     for m, k, n in [(128, 128, 128), (64, 256, 512), (256, 512, 256),
                     (8, 1024, 1024), (33, 96, 160)]:
@@ -354,8 +401,148 @@ def phase_kernels():
             plain_reps=20, lib_reps=50)
         if frac == 0.01:
             records["closure_delete_tiled"] = rec
+    del tiles, s, mask, rows
+    records["flash_attention"] = flash_attention_records(gen)
     torch.cuda.empty_cache()
     return records
+
+
+def causal_pairs(tq: int, tk: int, causal: bool) -> int:
+    """(query, key) pairs the attention computes: every pair, or causal
+    with queries aligned to the end of the keys."""
+    if not causal:
+        return tq * tk
+    off = tk - tq
+    return sum(min(tk, max(0, i + off + 1)) for i in range(tq))
+
+
+def attention_error(got, want, q, k, v, causal=True):
+    """(max abs error, max of the error over its bound ATTN_TOL) of B7's
+    output ``got`` against the plain version's ``want`` on q, k, v."""
+    from repro_torch.kernels import ops
+
+    out, prob, atol, cap = ATTN_TOL[want.dtype]
+    w = want.float()
+    err = (got.float() - w).abs()
+    tol = out * w.abs() + atol
+    if prob:        # sum_j p_j |v_j|: the plain version on |v|, in f32
+        tol += prob * ops.flash_attention(q.float(), k.float(),
+                                          v.float().abs(), causal=causal,
+                                          impl="ref")
+    return float(err.max()), float((err / tol.clamp(max=cap)).max())
+
+
+def attention_without_keys(q, k, v, lo: int, hi: int):
+    """The plain causal attention (Tq = Tk) with keys [lo, hi) left out
+    of every row: what a kernel that skipped that KV tile would give."""
+    b, hq, t, d = q.shape
+    hkv = k.shape[1]
+    s = torch.einsum("bhgqd,bhkd->bhgqk",
+                     q.float().reshape(b, hkv, hq // hkv, t, d),
+                     k.float()) / d ** 0.5
+    pos = torch.arange(t, device=q.device)
+    drop = (pos[None, :] > pos[:, None]) | ((pos >= lo) & (pos < hi))
+    p = torch.softmax(s.masked_fill(drop, float("-inf")), dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(b, hq, t, d).to(q.dtype)
+
+
+def flash_attention_records(gen):
+    """B7 against its plain version over the sweep, then its timings at
+    the LM main path's prefill shape; returns its record."""
+    from repro_torch.kernels import ops
+
+    def qkv(b, hq, hkv, tq, tk, d, dtype):
+        return (torch.randn((b, hq, tq, d), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype),
+                torch.randn((b, hkv, tk, d), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype),
+                torch.randn((b, hkv, tk, d), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype))
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    main = (LM_BATCH, 12, 2, LM_PROMPT, LM_PROMPT, 128)
+    cases = [  # (B, Hq, Hkv, Tq, Tk, d), causal, types
+        (main, True, (bf16,)),
+        ((1, 12, 2, 100, 100, 128), True, (bf16, f16, f32)),      # ragged
+        ((LM_BATCH, 12, 2, 1, LM_PROMPT + LM_GEN, 128), True,
+         (bf16, f32)),                                            # decode-like
+        ((2, 12, 2, 300, 1000, 128), True, (bf16, f16)),           # Tq < Tk
+        ((1, 4, 2, 80, 50, 64), True, (bf16, f32)),                # Tq > Tk
+        ((2, 12, 2, 512, 512, 128), False, (bf16, f32)),           # non-causal
+        ((2, 8, 2, 256, 256, 64), True, (bf16, f16, f32)),         # d = 64
+        ((LM_PARITY_BATCH, 4, 2, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 16),
+         True, (bf16, f32)),                                      # d = 16
+    ]
+    worst = {dt: 0.0 for dt in ATTN_TOL}      # max abs err
+    ratio = {dt: 0.0 for dt in ATTN_TOL}      # max err / its bound
+    launches = 0
+    for shape, causal, dtypes in cases:
+        for dt in dtypes:
+            q, k, v = qkv(*shape, dt)
+            got = ops.flash_attention(q, k, v, causal=causal, impl="cuda")
+            want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
+            torch.cuda.synchronize()
+            launches += 1
+            check(got.dtype == dt and got.shape == want.shape,
+                  f"flash_attention: output {got.dtype} {tuple(got.shape)}")
+            e, r = attention_error(got, want, q, k, v, causal)
+            worst[dt], ratio[dt] = max(worst[dt], e), max(ratio[dt], r)
+            check(r <= 1, f"flash_attention {shape} causal={causal} {dt}: "
+                  f"error {r:.3g} times its bound {ATTN_TOL[dt]} (max abs "
+                  f"err {e})")
+            del q, k, v, got, want
+    say("kernels", f"flash_attention: {launches} cases on the card, max abs "
+        f"err per type {{bf16: {worst[bf16]:.3g}, f16: {worst[f16]:.3g}, "
+        f"f32: {worst[f32]:.3g}}}, largest error over its bound {{bf16: "
+        f"{ratio[bf16]:.3g}, f16: {ratio[f16]:.3g}, f32: {ratio[f32]:.3g}}} "
+        "(bound per element: 2^-7 |want| + 2^-8 sum_j p_j |v_j|, 2^-10 "
+        "|want| + 2^-11 sum_j p_j |v_j|, capped at 2e-2 / 4e-3; 1e-4; "
+        "both compute in float32 "
+        "from the same inputs; bf16 / f16 round the output and the "
+        "kernel's probabilities to 8 / 11 bits)")
+
+    # the bound must see a fault on the late rows, where |o| is ~0.03:
+    # the plain version with one 64-key tile left out stands in for a
+    # kernel that skipped that tile
+    b, hq, hkv, t, _, d = main
+    q, k, v = qkv(*main, bf16)
+    want = ops.flash_attention(q, k, v, impl="ref")
+    e, r = attention_error(attention_without_keys(q, k, v, t // 2,
+                                                  t // 2 + 64), want,
+                           q, k, v)
+    check(r > 1, f"flash_attention: the bound does not reject an output "
+          f"with keys [{t // 2}, {t // 2 + 64}) left out ({r:.3g} of it)")
+    say("kernels", f"flash_attention: with keys [{t // 2}, {t // 2 + 64}) "
+        f"left out of every row at ({b}, {hq}, {t}, {d}) bf16, the error "
+        f"is {r:.3g} times its bound (max abs err {e:.3g}): rejected")
+    del want
+
+    # timings at the LM prefill's shape
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, impl="cuda"),
+                         20),
+           "plain_ms": cuda_ms(lambda: ops.flash_attention(q, k, v,
+                                                           impl="ref"), 3),
+           "library_ms": cuda_ms(lambda: sdpa(q, kx, vx, is_causal=True), 20),
+           "max_abs_err": worst[bf16]}
+    device = kernel_device_ms(lambda: ops.flash_attention(q, k, v,
+                                                          impl="cuda"),
+                              20, "flash_attention")
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flops = 2 * 2 * b * hq * d * causal_pairs(t, t, True)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
+    say("kernels", f"flash_attention ({b}, {hq}, {t}, {d}) over {hkv} KV "
+        f"heads, bf16, causal: kernel_ms={rec['ms']:.4f} (device_ms="
+        f"{device:.4f} alone, {flops / device / 1e9:.1f} TFLOP/s) "
+        f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}: {flops:.4g} flop, {nbytes} bytes) "
+        f"library_ms={rec['library_ms']:.4f} (one scaled_dot_product_"
+        "attention call, K/V expanded to Hq: a yardstick only, the port "
+        "never calls it)")
+    return rec
 
 
 # ------------------------------------------------------------- 4. parity
@@ -411,6 +598,44 @@ def phase_parity():
             f"{engines['cuda'].cache.dirty}, window "
             f"{engines['cuda'].closure_region}, "
             f"{time.perf_counter() - t0:.1f}s)")
+    lm_parity()
+
+
+def lm_parity():
+    """The LM at smoke width in float32 on the card (B7 in its prefill)
+    and on the CPU, from the same params and prompt: the prefill's
+    last-token logits and cache, then 8 greedy decode steps."""
+    import dataclasses
+
+    from repro_torch.configs import lm_common, registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(
+        lm_common.smoke_cfg(registry.lm_config(LM_ARCH)), dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT)).astype(np.int64)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        on = {k: v.to(d) for k, v in params.items() if k != "layers"}
+        on["layers"] = {k: v.to(d) for k, v in params["layers"].items()}
+        runs[d] = serve.lm_generate(cfg, on, torch.from_numpy(prompt).to(d),
+                                    LM_PARITY_STEPS + 1)
+    card, cpu = runs["cuda"], runs["cpu"]
+    err = {"prefill logits": (card["prefill_logits"].cpu()
+                              - cpu["prefill_logits"])[:, :cfg.vocab]}
+    for k in ("k", "v"):   # rows past the prompt hold the decode steps
+        err[f"cache {k}"] = card["cache"][k].cpu() - cpu["cache"][k]
+    err = {k: float(v.abs().max()) for k, v in err.items()}
+    for k, e in err.items():
+        check(e <= 1e-4, f"LM parity: {k} differs card vs CPU by {e}")
+    check(torch.equal(card["tokens"].cpu(), cpu["tokens"]),
+          "LM parity: greedy tokens differ card vs CPU")
+    say("parity", f"LM {LM_ARCH} at smoke width, float32, batch "
+        f"{LM_PARITY_BATCH}, prompt {LM_PARITY_PROMPT}: max abs diff card vs "
+        f"CPU {err} (<= 1e-4); {LM_PARITY_STEPS} greedy decode steps, "
+        f"tokens identical")
 
 
 # ---------------------------------------------------------- 5. main path
@@ -443,7 +668,7 @@ def phase_main_path():
                                                                   **kw))]
     gen = np.random.default_rng(0)
     torch.cuda.reset_peak_memory_stats()
-    total = {k: 0 for k in KERNELS}
+    total = {k: 0 for k in BIT_KERNELS}
     engines = {}
     for name, ticks, run in runs:
         t0 = time.perf_counter()
@@ -500,7 +725,7 @@ def phase_main_path():
     say("main", f"launches on the main paths {total}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     check(all(v > 0 for v in total.values()),
-          f"a kernel never launched on the main path: {total}")
+          f"a kernel never launched on the SGT main paths: {total}")
 
     # checks, outside the counted runs
     check(closure_cache.region_confined(eng.state.adj, eng.closure_region),
@@ -543,17 +768,102 @@ def phase_main_path():
     return total
 
 
+# ---------------------------------------------------------------- 6. lm
+
+def phase_lm():
+    """`serve_lm` at full width: a warm-up call, then the counted run;
+    then one profiled prefill for B7's share of it.  Returns the counted
+    run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.profile_ticks import _device_us
+    from repro_torch.models import transformer as T
+
+    kw = dict(arch=LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT,
+              device="cuda", width="full")
+    t0 = time.perf_counter()
+    serve.serve_lm(gen=2, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _launches_of(lambda: serve.serve_lm(gen=LM_GEN, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["cfg"]
+    vocab = cfg.vocab
+    say("lm", f"{LM_ARCH} full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv} heads, d_ff {cfg.d_ff}, "
+        f"vocab {vocab} padded to {cfg.padded_vocab}, {cfg.dtype}), batch "
+        f"{LM_BATCH}, prompt {LM_PROMPT}, {LM_GEN} greedy tokens: prefill "
+        f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_token']:.3f}"
+        f" ms/token, {out['tok_per_s']:.1f} tokens/s, peak memory "
+        f"{peak / 2**20:.0f} MiB, launches {launches} "
+        f"({time.perf_counter() - t0:.1f}s with the warm-up)")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"the prefill launched B7 {launches['flash_attention']} times, "
+          f"not once per layer ({cfg.n_layers})")
+    check(all(v == 0 for k, v in launches.items() if k != "flash_attention"),
+          f"the LM path launched a bit kernel: {launches}")
+    for name in ("prefill_logits", "logits"):
+        check(bool(torch.isfinite(out[name][:, :vocab].float()).all()),
+              f"LM: non-finite {name}")
+    toks = out["tokens"]
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN)
+          and int(toks.min()) >= 0 and int(toks.max()) < vocab,
+          f"LM: tokens {tuple(toks.shape)} outside [0, {vocab})")
+
+    # B7's share of one prefill's device time (outside the counted run)
+    params, prompt = out["params"], out["prompt"]
+    del out
+    T.prefill(cfg, params, prompt, max_len=LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        T.prefill(cfg, params, prompt, max_len=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+    events = [(e.key, _device_us(e), e.count) for e in prof.key_averages()]
+    total = sum(us for _, us, _ in events)
+    flash = sum(us for k, us, _ in events if "flash_attention_kernel" in k)
+    top = sorted(events, key=lambda e: -e[1])[:5]
+    say("lm", f"one profiled prefill: device busy {total / 1e3:.3f} ms, B7 "
+        f"{flash / 1e3:.3f} ms ({flash / max(total, 1e-9):.1%}); top "
+        "kernels " + "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}"
+                               for k, us, n in top))
+
+    # one profiled decode step: wall, device busy, kernels launched
+    logits, cache = T.prefill(cfg, params, prompt,
+                              max_len=LM_PROMPT + LM_GEN)
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    T.decode_step(cfg, params, cache, cur, LM_PROMPT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        T.decode_step(cfg, params, cache, cur, LM_PROMPT + 1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    events = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+              if _device_us(e) > 0]
+    busy = sum(us for _, us, _ in events) / 1e3
+    top = sorted(events, key=lambda e: -e[1])[:4]
+    say("lm", f"one profiled decode step: wall {wall:.3f} ms (profiler on), "
+        f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+        f"{sum(n for _, _, n in events)} device operations; top "
+        + "; ".join(f"{k[:50]} {us / 1e3:.3f} ms x{n}" for k, us, n in top))
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
-    # the port's small float32 products hold 0/1 values (exact either
-    # way); pin full float32 all the same
+    # the SGT path's small float32 products hold 0/1 values (exact either
+    # way) and the LM parity run compares float32 card and CPU: full
+    # float32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     phase_build()
     records = phase_kernels()
     phase_parity()
     launches = phase_main_path()
+    launches["flash_attention"] = phase_lm()["flash_attention"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -69,7 +69,9 @@ def as_compiled():
     ``jax.jit`` (its serving ticks are jitted), where the host cannot widen
     the tiles window between calls: `DagEngine._pre_widened` and
     `_region_synced` are identities, so an edge past the window degrades
-    the cache to dirty and the exact partial check decides.  The tick
+    the cache to dirty and the exact partial check decides; and
+    `_grown_for_overflow` is None, so an ``auto_grow`` engine reports its
+    overflow and drops instead of growing inside the call.  The tick
     bodies of `launch/serve.py` run under it; calls outside it widen as
     the reference's eager calls do."""
     token = _COMPILED.set(True)
@@ -487,8 +489,11 @@ class DagEngine:
 
     def _grown_for_overflow(self, result: "OpResult") -> Optional["DagEngine"]:
         """Under ``auto_grow``, the PRE-call engine doubled until the adds
-        ``result`` dropped would fit — or None when no growth applies."""
-        if not self.config.auto_grow:
+        ``result`` dropped would fit — or None when no growth applies.
+        Inside `as_compiled` it is None, as the reference's is under
+        ``jax.jit``: the call reports its overflow and drops, and the
+        caller grows between ticks."""
+        if not self.config.auto_grow or _COMPILED.get():
             return None
         need = int(result.n_overflow)
         if need <= 0:

@@ -9,6 +9,13 @@ tiled one, followed by ``cache.dirty`` and ``cache.repair_ema``.  Packed
 words cross as int32 arrays holding the uint32 bit pattern (a ``uint32``
 array is taken with ``.view(np.int32)``).  The caller flattens and
 rebuilds the JAX side with numpy; this module never imports JAX.
+
+LM params cross as the reference's param tree of numpy arrays (see
+`lm_params_from_arrays`).  A JAX bfloat16 array becomes a numpy array
+of the ``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` rejects;
+such arrays are recognised by their dtype's name and cross by bit
+pattern (16-bit integer views on both sides), so neither side rounds and
+this module never imports ``ml_dtypes``.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ import torch
 
 from repro_torch.core.closure_cache import ClosureCache, TiledClosure
 from repro_torch.core.dag import DagState
-from repro_torch.core.engine import DagEngine
+from repro_torch.core.engine import DagEngine, resolve_device
 
 LEAVES = ("keys", "alive", "adj", "n_overflow", "depth_ema", "cache.closure",
           "cache.dirty", "cache.repair_ema", "epoch")
@@ -94,4 +101,43 @@ def engine_to_arrays(engine: DagEngine) -> dict:
     out.update({"cache.dirty": np.asarray(cache.dirty),
                 "cache.repair_ema": cache.repair_ema.cpu().numpy(),
                 "epoch": np.asarray(engine.epoch, np.int32)})
+    return out
+
+
+def _tensor_of(arr, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _array_of(t: torch.Tensor, bfloat16) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    return t.view(torch.int16).numpy().view(bfloat16)
+
+
+def lm_params_from_arrays(arrays: dict, device=None) -> dict:
+    """The port's LM params on ``device`` (None: the card) from the
+    reference's param tree as numpy arrays: {"embed", "unembed",
+    "final_norm", "layers": {name: stacked leaf}} (`models.transformer`).
+    bfloat16 leaves keep their bits."""
+    dev = resolve_device(device)
+    out = {k: _tensor_of(v, dev) for k, v in arrays.items() if k != "layers"}
+    out["layers"] = {k: _tensor_of(v, dev)
+                     for k, v in arrays["layers"].items()}
+    return out
+
+
+def lm_params_to_arrays(params: dict, bfloat16) -> dict:
+    """The port's LM params as the reference's tree of numpy arrays.
+    bfloat16 leaves come back bit for bit as arrays of ``bfloat16``, the
+    numpy bfloat16 type the caller passes (``ml_dtypes.bfloat16``, which
+    ``jnp.bfloat16`` is)."""
+    out = {k: _array_of(v, bfloat16) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = {k: _array_of(v, bfloat16)
+                     for k, v in params["layers"].items()}
     return out

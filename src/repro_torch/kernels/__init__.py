@@ -1,2 +1,2 @@
-"""Hand-written CUDA kernels B1-B5 (`csrc/`), their plain torch versions
-(`ref`) and the dispatcher (`ops`)."""
+"""Hand-written CUDA kernels B1-B5 and B7 (`csrc/`), their plain torch
+versions (`ref`) and the dispatcher (`ops`)."""

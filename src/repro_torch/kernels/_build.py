@@ -9,8 +9,9 @@ when the module is imported, so the CPU tests can import every module.
 
 `LAUNCHES` counts kernel launches, one per successful launch, bumped by
 each wrapper (`kernels/bitmm.py`, `closure_update.py`,
-`closure_delete.py`; the last two hold the dense and the tiled variants)
-right where it launches; `kernels.ops` re-exports it.
+`closure_delete.py`, the last two holding the dense and the tiled
+variants, and `flash_attention.py`) right where it launches;
+`kernels.ops` re-exports it.
 """
 from __future__ import annotations
 
@@ -27,17 +28,20 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bitmm.cu", "closure_update.cu", "closure_delete.cu",
-           "closure_update_tiled.cu", "closure_delete_tiled.cu")
+           "closure_update_tiled.cu", "closure_delete_tiled.cu",
+           "flash_attention.cu")
 HEADERS = ("bitrow.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"bitmm": 0, "closure_update": 0, "closure_delete": 0,
-            "closure_update_tiled": 0, "closure_delete_tiled": 0}
+            "closure_update_tiled": 0, "closure_delete_tiled": 0,
+            "flash_attention": 0}
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-# C entry point -> argtypes (pointers and the stream as void*, sizes as int)
+# C entry point -> argtypes (pointers and the stream as void*, sizes as int;
+# flash attention adds its scale as a float and its 12 strides as an array)
 _SIGNATURES = {
     "repro_bitmm": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "repro_closure_update": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
@@ -45,6 +49,8 @@ _SIGNATURES = {
     "repro_closure_update_tiled": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
                                    _VP],
     "repro_closure_delete_tiled": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
+    "repro_flash_attention": [_VP, _VP, _VP, _VP, *[_INT] * 8, ctypes.c_float,
+                              ctypes.POINTER(ctypes.c_longlong), _VP],
 }
 
 

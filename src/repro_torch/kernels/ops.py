@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import bitmm as _bitmm
 from repro_torch.kernels import closure_delete as _closure_delete
 from repro_torch.kernels import closure_update as _closure_update
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
 
@@ -83,3 +84,14 @@ def closure_delete_tiled(r_packed, s_packed, affected_packed, *,
                                              affected_packed)
     return _closure_delete.closure_delete_tiled(r_packed, s_packed,
                                                 affected_packed)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    impl: str = "auto"):
+    """GQA flash attention, forward (the LM prefill's attention):
+    q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d) -> (B, Hq, Tq, d) in q's
+    type; causal aligned to the end of the key sequence."""
+    if _resolve(impl, q) == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return _flash_attention.flash_attention(q, k, v, causal=causal,
+                                            scale=scale)

@@ -1,7 +1,10 @@
 """Plain torch versions of the hand-written kernels (the correctness
-references), mirroring `repro.kernels.ref`: unpack to float32, matmul,
-threshold, pack; the tiled variants add the output's per-tile occupancy.  The CPU path of `kernels/ops.py` runs these; on the card
-only the comparisons in `chip_smoke.py` and the cuda-marked tests do."""
+references), mirroring `repro.kernels.ref`: the bit kernels unpack to
+float32, matmul, threshold and pack, and the tiled variants add the
+output's per-tile occupancy; attention is a float32 softmax over the
+whole score matrix.  The CPU path of `kernels/ops.py` runs these; on the
+card only the comparisons in `chip_smoke.py` and the cuda-marked tests
+do."""
 from __future__ import annotations
 
 import torch
@@ -61,3 +64,37 @@ def closure_delete_tiled_ref(r_packed: torch.Tensor, s_packed: torch.Tensor,
     plus the output's per-tile occupancy -> (r' (R, R/32), occ)."""
     out = closure_delete_ref(r_packed, s_packed, affected_packed)
     return out, tile_occupancy_ref(out)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """GQA attention: q (B, Hq, Tq, d), k and v (B, Hkv, Tk, d) with
+    Hq % Hkv == 0 -> (B, Hq, Tq, d) in q's type, computed in float32.
+    Causal queries sit at the END of the key sequence (query i sees keys
+    j <= i + Tk - Tq).
+
+    A masked score contributes exactly 0, and a query row that sees no key
+    (causal with Tq > Tk) gives 0, as kernel B7 does.  There the reference
+    `repro.kernels.ref.flash_attention_ref` gives NaN (its mask is -inf)
+    and the Pallas kernel gives the mean of v (its finite NEG_INF makes
+    every masked exp(s - m) 1); every row that sees a key agrees with
+    both."""
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf = q.to(torch.float32).reshape(b, hkv, g, tq, d)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.to(torch.float32)) * scale
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        kpos = torch.arange(tk, device=q.device)
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m))
+    den = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p / torch.where(den == 0, 1.0, den),
+                     v.to(torch.float32))
+    return o.reshape(b, hq, tq, d).to(q.dtype)

@@ -1,13 +1,16 @@
-"""SGT serving drivers, in torch.
+"""Serving drivers, in torch.
 
-Port of the SGT half of `repro.launch.serve`: the paper's end-to-end
-application — an SGT transaction scheduler serving batched
-begin / conflict / finish requests on the concurrent acyclic DAG —
-with the reference's deterministic numpy request streams, so the same
-seed gives the same workload in both packages.
+Port of `repro.launch.serve`'s SGT half — the paper's end-to-end
+application, an SGT transaction scheduler serving batched
+begin / conflict / finish requests on the concurrent acyclic DAG, with
+the reference's deterministic numpy request streams, so the same seed
+gives the same workload in both packages — and of its LM mode
+(`serve_lm`: prefill, then greedy decode).
 
     python -m repro_torch.launch.serve --profile delheavy \\
         --capacity 16384 --batch 1024
+    python -m repro_torch.launch.serve --mode lm --arch qwen2-1.5b \\
+        --width full --batch 4
 
 Runs on the card unless ``--device cpu`` is given.  A tick ends in a
 device synchronisation, so the tick times are wall times of finished
@@ -368,8 +371,80 @@ def serve_sgt_churn(capacity: int = 1024, batch: int = 256,
     return out
 
 
+def lm_generate(cfg, params, prompt: torch.Tensor, gen: int) -> dict:
+    """Prefill ``prompt`` (B, T), then ``gen - 1`` greedy decode steps
+    against a cache padded to ``T + gen``, as the reference's `serve_lm`
+    runs them.  Returns the ``gen`` greedy tokens (B, gen), the prefill's
+    last-token logits, the last step's logits, the cache, and the
+    prefill's and the decode steps' wall seconds (each ends in a device
+    synchronisation)."""
+    from repro_torch.models import transformer as T
+
+    b, prompt_len = prompt.shape
+    device = prompt.device
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, prompt,
+                              max_len=prompt_len + gen)
+    first = logits
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t1 = time.perf_counter()
+    outs = [cur]
+    for i in range(gen - 1):
+        logits, cache = T.decode_step(cfg, params, cache, cur,
+                                      prompt_len + i)
+        cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        outs.append(cur)
+    _sync(device)
+    t2 = time.perf_counter()
+    return {"tokens": torch.stack(outs, dim=1), "prefill_logits": first,
+            "logits": logits, "cache": cache, "prefill_s": t1 - t0,
+            "decode_s": t2 - t1}
+
+
+def serve_lm(arch: str = "qwen2-1.5b", batch: int = 4, prompt_len: int = 64,
+             gen: int = 32, *, device=None, width: str = "smoke",
+             seed: int = 0) -> dict:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens and
+    generate ``gen`` tokens each by greedy argmax, with random weights
+    made from ``seed``.  ``width="smoke"`` runs the reference's reduced
+    config (`configs.lm_common.smoke_cfg`, as its `serve_lm` does);
+    ``"full"`` the arch's published widths.  Returns tok_per_s (generated
+    tokens over the prefill and decode wall time), prefill_ms,
+    decode_ms_per_token, the config, params and prompt, and what
+    `lm_generate` returns."""
+    from repro_torch.configs import lm_common, registry
+    from repro_torch.models import transformer as T
+
+    validate_choice(width, ("smoke", "full"), what="width")
+    dev = resolve_device(device)
+    cfg = registry.lm_config(arch)
+    if width == "smoke":
+        cfg = lm_common.smoke_cfg(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(cfg, g, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=g,
+                           device=dev)
+    out = lm_generate(cfg, params, prompt, gen)
+    dt = out["prefill_s"] + out["decode_s"]
+    toks = batch * gen
+    print(f"[serve-lm] {arch}: {toks} tokens in {dt:.2f}s "
+          f"({toks/dt:.1f} tok/s, batch={batch})")
+    out.update(tok_per_s=toks / dt, prefill_ms=out["prefill_s"] * 1e3,
+               decode_ms_per_token=out["decode_s"] * 1e3 / max(1, gen - 1),
+               cfg=cfg, params=params, prompt=prompt)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--mode", choices=["sgt", "lm"], default="sgt")
+    p.add_argument("--arch", default="qwen2-1.5b",
+                   help="lm mode: the LM arch (configs/registry.py)")
+    p.add_argument("--width", choices=["smoke", "full"], default="smoke",
+                   help="lm mode: the reference's reduced config (smoke) "
+                        "or the arch's published widths (full)")
     p.add_argument("--profile", default="steady", metavar="PROFILE",
                    help="request stream: steady begin/conflict/finish "
                         "ticks, insheavy (no retirements), or the delheavy "
@@ -390,7 +465,8 @@ def main(argv=None) -> int:
                    help="steady profile: double capacity between ticks on "
                         "overflow instead of dropping begins")
     p.add_argument("--device", default="cuda",
-                   help="torch device the engine runs on (default: cuda)")
+                   help="torch device the engine or the model runs on "
+                        "(default: cuda)")
     args = p.parse_args(argv)
     try:
         validate_choice(args.profile, PROFILES, what="profile")
@@ -404,6 +480,12 @@ def main(argv=None) -> int:
     # the cost model's small float32 products hold 0/1 values, exact with
     # or without TF32; full float32 is pinned all the same
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.mode == "lm":
+        # the reference's batch rule for lm mode
+        serve_lm(args.arch, batch=max(2, args.batch % 16),
+                 device=args.device, width=args.width)
+        return 0
     common = dict(capacity=args.capacity, batch=args.batch, ticks=args.ticks,
                   device=args.device)
     if args.profile == "steady":

@@ -12,7 +12,9 @@ After every call the ok bits, adjacency, closure words, dirty flag, epoch
 and every `ReachStats` field must be identical; the float32 EMAs
 (``depth_ema``, ``repair_ema``) must agree within 1e-6 absolute.  Also:
 the work counts the reference pins, snapshot isolation, the interop round
-trip of a mid-stream reference engine, and device selection.
+trip of a mid-stream reference engine, ``auto_grow`` inside
+`as_compiled` (report and drop, as under ``jax.jit``) and outside it
+(grow and re-run, as eager), and device selection.
 """
 import numpy as np
 import pytest
@@ -274,6 +276,71 @@ def test_grow_and_options_match_reference():
             np.asarray(want))
     with pytest.raises(ValueError, match="nearest valid capacity is 160"):
         te.grow(150)
+
+
+# ------------------------------------ auto_grow inside and outside a tick
+
+def _overflowing_batch():
+    """40 vertex adds (keys 1..40) and 4 edge adds among the first keys:
+    8 adds more than a 32-slot engine holds."""
+    keys = np.arange(1, 41)
+    return (np.concatenate([np.full(40, jdag.ADD_VERTEX),
+                            np.full(4, jdag.ADD_EDGE)]).astype(np.int32),
+            np.concatenate([keys, [1, 2, 3, 5]]).astype(np.int32),
+            np.concatenate([np.zeros(40), [2, 3, 4, 6]]).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def auto_grow_reference():
+    """The reference's jitted ``add_vertices`` and ``apply`` of the
+    overflowing batch on a fresh ``auto_grow`` engine of capacity 32 (where
+    they report and drop) and on that engine grown to 64 (what its eager
+    calls re-run on): one jitted function for both calls, compiled once
+    per capacity."""
+    keys = np.arange(1, 41, dtype=np.int32)
+    op, a, b = _overflowing_batch()
+
+    def calls(e):
+        return e.add_vertices(keys), e.apply(JBatch(op, a, b))
+
+    run = jax.jit(lambda grown: calls(
+        JEngine.create(32, auto_grow=True).grow(64) if grown
+        else JEngine.create(32, auto_grow=True)), static_argnums=0)
+    return {32: run(False), 64: run(True)}
+
+
+def _check_auto_grow(te_res, j_res, capacity, n_overflow, n_ok):
+    (te, tr), (je, jr) = te_res, j_res
+    assert te.capacity == capacity == je.config.capacity
+    assert int(tr.n_overflow) == n_overflow
+    assert int(tr.ok[:40].sum()) == n_ok
+    same_result(tr, jr)
+    same_engine(te, je)
+
+
+@pytest.mark.parametrize("call", ["add_vertices", "apply"])
+def test_auto_grow_reports_and_drops_inside_as_compiled(
+        call, auto_grow_reference):
+    """Inside `as_compiled` an ``auto_grow`` engine keeps its capacity and
+    reports the 8 adds it dropped, as the reference's jitted call does."""
+    from repro_torch.core.engine import as_compiled
+    te = TEngine.create(32, auto_grow=True, device="cpu")
+    with as_compiled():
+        got = (te.add_vertices(t(np.arange(1, 41))) if call == "add_vertices"
+               else te.apply(TBatch(*map(t, _overflowing_batch()))))
+    want = auto_grow_reference[32][call == "apply"]
+    _check_auto_grow(got, want, 32, 8, 32)
+
+
+@pytest.mark.parametrize("call", ["add_vertices", "apply"])
+def test_auto_grow_grows_eagerly(call, auto_grow_reference):
+    """Outside `as_compiled` the engine doubles to 64 and re-runs the
+    batch, as the reference's eager call re-runs it on ``grow(64)``."""
+    te = TEngine.create(32, auto_grow=True, device="cpu")
+    got = (te.add_vertices(t(np.arange(1, 41))) if call == "add_vertices"
+           else te.apply(TBatch(*map(t, _overflowing_batch()))))
+    want = auto_grow_reference[64][call == "apply"]
+    _check_auto_grow(got, want, 64, 0, 40)
 
 
 # --------------------------------------------------- device and scope
