@@ -5,9 +5,8 @@
 Phases, one status line each; the first failure raises and exits
 non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
-  2. build      — nvcc builds kernels B1-B5 and B7 from
-                  src/repro_torch/csrc; registers and shared memory per
-                  kernel (-Xptxas -v).
+  2. build      — nvcc builds kernels B1-B7 from src/repro_torch/csrc;
+                  registers and shared memory per kernel (-Xptxas -v).
   3. kernels    — every kernel bit-identical to its plain torch version
                   at the shapes and densities of tests/test_kernels.py
                   (B1-B3) and over windows R in {32, 96, 1024, 4096},
@@ -28,7 +27,17 @@ non-zero:
                   2e-2 / 4e-3; f32 1e-4);
                   the same bound must reject the main shape's output
                   with one 64-key tile left out; its library yardstick
-                  is one scaled_dot_product_attention call.
+                  is one scaled_dot_product_attention call.  B6 (the
+                  embedding bag) against its plain version at the shapes
+                  of tests/test_kernels.py in f32 and bf16 with 0-weight
+                  padding, at ragged widths, at the xDeepFM main path's
+                  (R=33,001,472, D=1, B=512, K=39, f32, unit weights) and
+                  at kernel_bench's (R=1,000,000, D=64, B=4096, K=4), every
+                  element within its rounding bound (EMB_TOL: K 2^-23
+                  sum_k |w_k t_k|, plus 2^-7 |want| in bf16); the bound
+                  must reject the main shape's output with one k term
+                  left out; its library yardstick is one
+                  F.embedding_bag(mode="sum") call.
   4. parity     — on the card (kernels) and on the CPU (plain versions),
                   compared after every call (ok bits, adjacency, closure
                   words or tiles and summary, dirty flag, epoch,
@@ -39,7 +48,10 @@ non-zero:
                   (qwen2-1.5b at smoke width, float32, TF32 off): the
                   prefill's last-token logits and KV cache within 1e-4
                   of the CPU's and identical greedy tokens over 8 decode
-                  steps, from the same params and prompt.
+                  steps, from the same params and prompt; xDeepFM at the
+                  reduced config of tests/test_recsys.py (float32, TF32
+                  off): forward, loss and retrieval scores within 1e-5 of
+                  the CPU's, from the same params and ids.
   5. main path  — `repro_torch.launch.serve` at C=16384, B=1024 under the
                   CLI's default method ("auto"): steady (engine api) 10
                   ticks, delheavy 10 ticks, insheavy 6 ticks, each
@@ -62,6 +74,16 @@ non-zero:
                   prefill) and its share of a profiled prefill; a
                   profiled decode step (device busy, idle share); logits
                   finite, every token inside the vocab.
+  7. recsys     — full-width xDeepFM (configs/xdeepfm.py: 39 fields, embed
+                  10, CIN 200-200-200, MLP 400-400, 33,001,472 table rows,
+                  1,000,000 items x 64; float32, random from seed 0):
+                  serve_p99 (batch 512) after a warm-up, 20 timed forward
+                  calls with the counters zeroed just before them (ms per
+                  batch, samples/s; B6 launched once per call); then
+                  retrieval_cand (one query against 1,000,000 candidates,
+                  ms); peak memory and the top device kernels of one
+                  profiled forward (B6's share) and of one profiled query.
+                  Logits and scores finite.
 The line before the last is the per-kernel JSON record, the last line
 the device record.  Imports only the port, torch and numpy.
 """
@@ -81,6 +103,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12        # H100 SXM data sheet, dense int8 tensor
 BF16_FLOP_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor
+F32_FLOP_PER_S = 67e12          # H100 SXM data sheet, float32 without tensor cores
 C_FULL, B_FULL = 16384, 1024    # the dense layout's main path
 C_TILED, B_TILED, T_TILED = 131072, 128, 10   # the tiled layout's main path
 R_TILED = 1024                  # its window (closure_cache.DEFAULT_REGION)
@@ -100,6 +123,16 @@ LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_STEPS = 4, 64, 8
 ATTN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -8, 1e-6, 2e-2),
             torch.float16: (2 ** -10, 2 ** -11, 1e-6, 4e-3),
             torch.float32: (0.0, 0.0, 1e-4, 1e-4)}
+# B6 against its plain version, per element: |got - want| <= K 2^-23
+# sum_k |w_k t_k| (+ 2^-7 |want| for a bf16 table).  Both form each
+# product w t in float32 and sum the K products in float32, in other
+# orders: each of the K additions rounds by at most 2^-24 of a partial
+# sum no larger than sum_k |w_k t_k|, so two orders differ by at most
+# 2 K 2^-24 of it.  A bf16 output rounds those two float32 sums to the
+# nearest bf16 each, which can fall on neighbouring values: one ulp,
+# 2^-7 of the value.
+EMB_ULP_F32, EMB_ULP_BF16 = 2.0 ** -23, 2.0 ** -7
+REC_STEPS = 20                  # timed forward calls at serve_p99
 BIT_KERNELS = ("bitmm", "closure_update", "closure_delete",
                "closure_update_tiled", "closure_delete_tiled")
 
@@ -115,6 +148,8 @@ KERNELS = {
                              "src/repro/kernels/closure_delete.py:134"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flashattn.py:66"),
+    "embbag": ("src/repro_torch/csrc/embbag.cu",
+               "src/repro/kernels/embbag.py:48"),
 }
 
 
@@ -168,6 +203,10 @@ def phase_build():
                           m.group(1))
             if t:   # one instantiation per (type, head dim)
                 kernel = f"flash_attention<{t.group(1)}, d={t.group(2)}>"
+            t = re.search(r"embbag_kernelILb([01])ELi(\d+)E", m.group(1))
+            if t:   # one instantiation per (type, load width)
+                kernel = (f"embbag<{'bf16' if t.group(1) == '1' else 'f32'}"
+                          f", vec={t.group(2)}>")
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             smem = re.search(r"(\d+) bytes smem", line)
@@ -404,6 +443,8 @@ def phase_kernels():
     del tiles, s, mask, rows
     records["flash_attention"] = flash_attention_records(gen)
     torch.cuda.empty_cache()
+    records["embbag"] = embbag_records()
+    torch.cuda.empty_cache()
     return records
 
 
@@ -545,6 +586,146 @@ def flash_attention_records(gen):
     return rec
 
 
+def embbag_error(got, want, table, idx, w):
+    """(max abs error, max of the error over its bound EMB_TOL) of B6's
+    output ``got`` against the plain version's ``want`` on the inputs."""
+    mag = (table[idx.long()].float().abs()
+           * w.abs()[..., None]).sum(1)                 # sum_k |w_k t_k|
+    tol = idx.shape[1] * EMB_ULP_F32 * mag
+    if table.dtype == torch.bfloat16:
+        tol += EMB_ULP_BF16 * want.float().abs()
+    err = (got.float() - want.float()).abs()
+    return (float(err.max()) if err.numel() else 0.0,
+            float((err / tol.clamp(min=1e-30)).max()) if err.numel() else 0.0)
+
+
+def embbag_inputs(rows, d, b, k, dtype, gen, *, unit=False, idx=None):
+    """A table (R, D) ~ N(0, 1) in ``dtype``, idx (B, K) uniform over the
+    rows (or ``idx``), weights U(0, 1) with ~20% 0-weight padding (or all
+    1), on the card from ``gen``."""
+    table = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    if idx is None:
+        idx = torch.randint(0, rows, (b, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    if unit:
+        w = torch.ones((b, k), device="cuda")
+    else:
+        w = torch.rand((b, k), generator=gen, device="cuda") * (
+            torch.rand((b, k), generator=gen, device="cuda") < 0.8)
+    return table, idx, w
+
+
+def xdeepfm_ids(batch: int, rng) -> torch.Tensor:
+    """(batch, 39) per-field ids, each drawn uniformly within its field's
+    vocabulary of configs/xdeepfm.py (numpy), on the card."""
+    from repro_torch.configs import xdeepfm
+
+    return torch.from_numpy(np.stack(
+        [rng.integers(0, v, batch) for v in xdeepfm.CFG.vocab_sizes], 1)
+        .astype(np.int32)).cuda()
+
+
+def embbag_records():
+    """B6 against its plain version over the sweep, the dropped-term
+    check, then its timings at the xDeepFM main path's shape and at
+    kernel_bench's; returns the main path's record."""
+    from repro_torch.configs import xdeepfm
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import embedding as emb
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (R, D, B, K), types
+        ((64, 16, 8, 4), (f32, bf16)), ((256, 128, 16, 8), (f32, bf16)),
+        ((1024, 32, 32, 2), (f32, bf16)),                # test_kernels.py
+        ((300, 3, 7, 5), (f32, bf16)), ((64, 40, 9, 33), (f32, bf16)),
+        ((64, 1100, 4, 5), (f32,)), ((64, 2056, 3, 5), (bf16,)),
+        ((16, 8, 0, 3), (f32,)),                         # ragged, B = 0
+    ]
+    worst = {f32: 0.0, bf16: 0.0}
+    ratio = {f32: 0.0, bf16: 0.0}
+    n = 0
+    for shape, dtypes in cases:
+        for dt in dtypes:
+            table, idx, w = embbag_inputs(*shape, dt, gen)
+            got = ops.embedding_bag(table, idx, w, impl="cuda")
+            want = ops.embedding_bag(table, idx, w, impl="ref")
+            torch.cuda.synchronize()
+            check(got.dtype == dt and got.shape == want.shape,
+                  f"embbag {shape}: output {got.dtype} {tuple(got.shape)}")
+            e, r = embbag_error(got, want, table, idx, w)
+            worst[dt], ratio[dt] = max(worst[dt], e), max(ratio[dt], r)
+            check(r <= 1, f"embbag {shape} {dt}: error {r:.3g} times its "
+                  f"bound (max abs err {e})")
+            n += 1
+
+    # the main path's shape: the xDeepFM linear term at serve_p99
+    cfg = xdeepfm.CFG
+    rows, b = cfg.total_rows(), xdeepfm.SHAPES["serve_p99"]["batch"]
+    offsets = torch.from_numpy(emb.field_offsets(cfg.vocab_sizes)).cuda()
+    main_idx = emb.flat_ids(xdeepfm_ids(b, np.random.default_rng(6)), offsets)
+    k = main_idx.shape[1]
+    main = embbag_inputs(rows, 1, b, k, f32, gen, unit=True, idx=main_idx)
+    bench = embbag_inputs(1_000_000, 64, 4096, 4, f32, gen, unit=True)
+    for label, (table, idx, w) in (("main", main), ("kernel_bench", bench)):
+        got = ops.embedding_bag(table, idx, w, impl="cuda")
+        want = ops.embedding_bag(table, idx, w, impl="ref")
+        torch.cuda.synchronize()
+        e, r = embbag_error(got, want, table, idx, w)
+        worst[f32], ratio[f32] = max(worst[f32], e), max(ratio[f32], r)
+        check(r <= 1, f"embbag at the {label} shape: error {r:.3g} times its "
+              f"bound (max abs err {e})")
+        n += 1
+    say("kernels", f"embbag: {n} cases on the card, max abs err per type "
+        f"{{f32: {worst[f32]:.3g}, bf16: {worst[bf16]:.3g}}}, largest error "
+        f"over its bound {{f32: {ratio[f32]:.3g}, bf16: {ratio[bf16]:.3g}}} "
+        "(bound per element: K 2^-23 sum_k |w_k t_k|, plus 2^-7 |want| in "
+        "bf16; both sum float32 products in float32)")
+
+    # the bound must see a bag with its first term left out
+    table, idx, w = main
+    want = ops.embedding_bag(table, idx, w, impl="ref")
+    dropped = ops.embedding_bag(table, idx[:, 1:].contiguous(),
+                                w[:, 1:].contiguous(), impl="ref")
+    e, r = embbag_error(dropped, want, table, idx, w)
+    check(r > 1, f"embbag: the bound does not reject an output with term "
+          f"k=0 left out ({r:.3g} of it)")
+    say("kernels", f"embbag: with term k=0 left out of every bag at the main "
+        f"shape, the error is {r:.3g} times its bound (max abs err "
+        f"{e:.3g}): rejected")
+    del want, dropped
+
+    records = {}
+    for label, (table, idx, w) in (
+            (f"xDeepFM linear term R={rows} D=1 B={b} K={k}, unit weights",
+             main),
+            ("kernel_bench R=1000000 D=64 B=4096 K=4, unit weights", bench)):
+        bb, kk = idx.shape
+        d = table.shape[1]
+        rec = {"ms": cuda_ms(lambda: ops.embedding_bag(table, idx, w,
+                                                       impl="cuda"), 200),
+               "plain_ms": cuda_ms(lambda: ops.embedding_bag(
+                   table, idx, w, impl="ref"), 20),
+               "library_ms": cuda_ms(
+                   lambda: torch.nn.functional.embedding_bag(
+                       idx, table, per_sample_weights=w, mode="sum"), 200),
+               "max_abs_err": worst[f32]}
+        device = kernel_device_ms(lambda: ops.embedding_bag(table, idx, w,
+                                                            impl="cuda"),
+                                  200, "embbag")
+        nbytes = 4 * (bb * kk * d + 2 * bb * kk + bb * d)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * bb * kk * d,
+                                                 F32_FLOP_PER_S)
+        say("kernels", f"embbag {label}, f32: kernel_ms={rec['ms']:.4f} "
+            f"(device_ms={device:.4f} alone) plain_ms={rec['plain_ms']:.4f} "
+            f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}: {nbytes} "
+            f"bytes) library_ms={rec['library_ms']:.4f} (one "
+            "F.embedding_bag(mode='sum') call: a yardstick only, the port "
+            "never calls it)")
+        records.setdefault("embbag", rec)
+    return records["embbag"]
+
+
 # ------------------------------------------------------------- 4. parity
 
 def phase_parity():
@@ -599,6 +780,7 @@ def phase_parity():
             f"{engines['cuda'].closure_region}, "
             f"{time.perf_counter() - t0:.1f}s)")
     lm_parity()
+    recsys_parity()
 
 
 def lm_parity():
@@ -636,6 +818,49 @@ def lm_parity():
         f"{LM_PARITY_BATCH}, prompt {LM_PARITY_PROMPT}: max abs diff card vs "
         f"CPU {err} (<= 1e-4); {LM_PARITY_STEPS} greedy decode steps, "
         f"tokens identical")
+
+
+def recsys_parity():
+    """xDeepFM at the reduced config of tests/test_recsys.py in float32 on
+    the card (B6 in its linear term) and on the CPU, from the same params
+    (one seeded init) and ids: forward, loss and retrieval scores."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.recsys import xdeepfm as X
+
+    cfg = X.XDeepFMConfig(
+        name="t", n_fields=6, embed_dim=8, cin_layers=(16, 16),
+        mlp_dims=(32, 32), vocab_sizes=(16, 32, 8, 64, 16, 8), n_items=128,
+        retrieval_dim=16)
+    params = X.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, 16)
+                                     for v in cfg.vocab_sizes], 1)
+                           .astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, 2, 16))
+    cand = torch.arange(cfg.n_items)
+    runs = {}
+    before = ops.LAUNCHES["embbag"]
+    for d in ("cuda", "cpu"):
+        on = {k: ([tuple(x.to(d) for x in v) if isinstance(v, tuple)
+                   else v.to(d) for v in p] if isinstance(p, list)
+                  else p.to(d))
+              for k, p in params.items()}
+        i = ids.to(d)
+        runs[d] = (X.forward(cfg, on, i),
+                   X.loss(cfg, on, {"ids": i, "labels": labels.to(d)}),
+                   X.retrieval_score(cfg, on, i[:1], cand.to(d)))
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["embbag"] - before == 2,
+          "recsys parity: the card's forward and loss did not each launch "
+          "B6 once")
+    err = {name: float((c.cpu() - h).abs().max()) for name, c, h in zip(
+        ("forward", "loss", "retrieval_score"), runs["cuda"], runs["cpu"])}
+    for name, e in err.items():
+        check(e <= 1e-5, f"recsys parity: {name} differs card vs CPU by {e}")
+    say("parity", f"xDeepFM at the reduced config of tests/test_recsys.py, "
+        f"float32, batch 16, {cfg.n_items} candidates: max abs diff card vs "
+        f"CPU {err} (<= 1e-5)")
 
 
 # ---------------------------------------------------------- 5. main path
@@ -850,13 +1075,116 @@ def phase_lm():
     return launches
 
 
+# ------------------------------------------------------------- 7. recsys
+
+def phase_recsys():
+    """Full-width xDeepFM: serve_p99 (a warm-up, then REC_STEPS timed
+    forward calls with the counters zeroed just before them), then
+    retrieval_cand; then one profiled forward for B6's share of it, and
+    one profiled query.  Returns the counted run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import xdeepfm
+    from repro_torch.launch.profile_ticks import _device_us
+    from repro_torch.models.recsys import xdeepfm as X
+
+    cfg = xdeepfm.CFG
+    b = xdeepfm.SHAPES["serve_p99"]["batch"]
+    n_cand = xdeepfm.SHAPES["retrieval_cand"]["n_candidates"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = X.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(0)
+    X.forward(cfg, params, xdeepfm_ids(b, rng))            # warm-up
+    batches = [xdeepfm_ids(b, rng) for _ in range(REC_STEPS)]
+    torch.cuda.synchronize()
+
+    def serve():
+        logits, times = [], []
+        for ids in batches:
+            t1 = time.perf_counter()
+            logits.append(X.forward(cfg, params, ids))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return logits, times
+
+    (logits, times), launches = _launches_of(serve)
+    ms = float(np.median(times))
+    say("recsys", f"xDeepFM full width ({cfg.n_fields} fields, embed "
+        f"{cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp_dims}, "
+        f"{cfg.total_rows()} table rows, {cfg.n_items} items x "
+        f"{cfg.retrieval_dim}, float32; params on the card in {init_s:.1f}s, "
+        f"{resident / 2**20:.0f} MiB): serve_p99 batch {b}, {REC_STEPS} "
+        f"forward calls: median {ms:.4f} ms, mean {np.mean(times):.4f} ms, "
+        f"max {max(times):.4f} ms per batch, {b / ms * 1e3:.0f} samples/s "
+        f"(median), launches {launches}")
+    check(launches["embbag"] == REC_STEPS,
+          f"serve_p99 launched B6 {launches['embbag']} times in "
+          f"{REC_STEPS} forward calls, not once per call")
+    check(all(v == 0 for k, v in launches.items() if k != "embbag"),
+          f"the recsys path launched another kernel: {launches}")
+    for out in logits:
+        check(tuple(out.shape) == (b,) and bool(torch.isfinite(out).all()),
+              f"serve_p99: logits {tuple(out.shape)} not finite")
+
+    # retrieval_cand: one query against every candidate
+    query = xdeepfm_ids(1, rng)
+    cand = torch.arange(n_cand, device="cuda")
+    scores = X.retrieval_score(cfg, params, query, cand)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REC_STEPS):
+        t1 = time.perf_counter()
+        scores = X.retrieval_score(cfg, params, query, cand)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    check(tuple(scores.shape) == (n_cand,)
+          and bool(torch.isfinite(scores).all()),
+          f"retrieval_cand: scores {tuple(scores.shape)} not finite")
+    say("recsys", f"retrieval_cand: one query against {n_cand} candidates: "
+        f"median {np.median(times):.4f} ms, max {max(times):.4f} ms over "
+        f"{REC_STEPS} calls; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+
+    # one profiled forward (B6's share of its device time) and one
+    # profiled query, outside the counted run
+    for label, call in (
+            (f"forward at batch {b}", lambda: X.forward(cfg, params,
+                                                        batches[0])),
+            ("retrieval_cand query", lambda: X.retrieval_score(
+                cfg, params, query, cand))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        events = [(e.key, _device_us(e), e.count)
+                  for e in prof.key_averages() if _device_us(e) > 0]
+        busy = sum(us for _, us, _ in events)
+        bag = sum(us for k, us, _ in events if "embbag_kernel" in k)
+        top = sorted(events, key=lambda e: -e[1])[:6]
+        say("recsys", f"one profiled {label}: wall {wall:.3f} ms (profiler "
+            f"on), device busy {busy / 1e3:.4f} ms, idle share "
+            f"{1 - busy / 1e3 / wall:.3f}, {sum(n for _, _, n in events)} "
+            f"device operations, B6 {bag / 1e3:.4f} ms "
+            f"({bag / max(busy, 1e-9):.1%}); top kernels "
+            + "; ".join(f"{k[:60]} {us / 1e3:.4f} ms x{n}"
+                        for k, us, n in top))
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     sys.path.insert(0, str(ROOT / "src"))
     # the SGT path's small float32 products hold 0/1 values (exact either
-    # way) and the LM parity run compares float32 card and CPU: full
-    # float32, no TF32
+    # way) and the LM and xDeepFM parity runs compare float32 card and
+    # CPU: full float32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
@@ -864,6 +1192,7 @@ def main() -> int:
     phase_parity()
     launches = phase_main_path()
     launches["flash_attention"] = phase_lm()["flash_attention"]
+    launches["embbag"] = phase_recsys()["embbag"]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,3 +1,3 @@
 """The port's copies of the reference's model configs (`repro.configs`):
-the LM configs ported so far, the registry's LM part and the smoke
-reduction."""
+the LM configs ported so far with their shapes and smoke reduction,
+xDeepFM, and the registry's LM and recsys parts."""

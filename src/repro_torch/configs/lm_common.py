@@ -1,10 +1,18 @@
-"""LM config plumbing shared by the LM archs (port of the smoke part of
-`repro.configs.lm_common`)."""
+"""LM config plumbing shared by the LM archs (port of the shapes and the
+smoke reduction of `repro.configs.lm_common`)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.models.transformer import LMConfig
+
+# the reference's LM cells (`repro.configs.lm_common.LM_SHAPES`)
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
 
 
 def smoke_cfg(cfg: LMConfig) -> LMConfig:

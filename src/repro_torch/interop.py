@@ -10,8 +10,8 @@ words cross as int32 arrays holding the uint32 bit pattern (a ``uint32``
 array is taken with ``.view(np.int32)``).  The caller flattens and
 rebuilds the JAX side with numpy; this module never imports JAX.
 
-LM params cross as the reference's param tree of numpy arrays (see
-`lm_params_from_arrays`).  A JAX bfloat16 array becomes a numpy array
+LM and xDeepFM params cross as the reference's param tree of numpy
+arrays (see `lm_params_from_arrays`, `xdeepfm_params_from_arrays`).  A JAX bfloat16 array becomes a numpy array
 of the ``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` rejects;
 such arrays are recognised by their dtype's name and cross by bit
 pattern (16-bit integer views on both sides), so neither side rounds and
@@ -141,3 +141,28 @@ def lm_params_to_arrays(params: dict, bfloat16) -> dict:
     out["layers"] = {k: _array_of(v, bfloat16)
                      for k, v in params["layers"].items()}
     return out
+
+
+def _tree(fn, node):
+    """``fn`` on every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(node, dict):
+        return {k: _tree(fn, v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_tree(fn, v) for v in node)
+    return fn(node)
+
+
+def xdeepfm_params_from_arrays(arrays: dict, device=None) -> dict:
+    """The port's xDeepFM params on ``device`` (None: the card) from the
+    reference's param tree as numpy arrays: {"table", "linear_table",
+    "cin" [...], "cin_out", "dnn" [(w, b), ...], "bias", "user_proj"
+    [(w, b)], "item_table"} (`models.recsys.xdeepfm`); lists and pairs
+    keep their kinds."""
+    dev = resolve_device(device)
+    return _tree(lambda a: _tensor_of(a, dev), arrays)
+
+
+def xdeepfm_params_to_arrays(params: dict) -> dict:
+    """The port's xDeepFM params (float32) as the reference's tree of
+    numpy arrays."""
+    return _tree(lambda t: t.detach().cpu().numpy(), params)

@@ -10,7 +10,7 @@ when the module is imported, so the CPU tests can import every module.
 `LAUNCHES` counts kernel launches, one per successful launch, bumped by
 each wrapper (`kernels/bitmm.py`, `closure_update.py`,
 `closure_delete.py`, the last two holding the dense and the tiled
-variants, and `flash_attention.py`) right where it launches;
+variants, `flash_attention.py` and `embbag.py`) right where it launches;
 `kernels.ops` re-exports it.
 """
 from __future__ import annotations
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("bitmm.cu", "closure_update.cu", "closure_delete.cu",
            "closure_update_tiled.cu", "closure_delete_tiled.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "embbag.cu")
 HEADERS = ("bitrow.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -37,7 +37,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 LAUNCHES = {"bitmm": 0, "closure_update": 0, "closure_delete": 0,
             "closure_update_tiled": 0, "closure_delete_tiled": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "embbag": 0}
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int;
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "repro_closure_delete_tiled": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "repro_flash_attention": [_VP, _VP, _VP, _VP, *[_INT] * 8, ctypes.c_float,
                               ctypes.POINTER(ctypes.c_longlong), _VP],
+    "repro_embbag": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
 }
 
 
@@ -141,9 +142,11 @@ def library() -> ctypes.CDLL:
 
 
 def check_operand(t: torch.Tensor, name: str, ndim: int,
-                  device: torch.device | None = None) -> None:
-    """Raise unless ``t`` is a contiguous int32 CUDA tensor of ``ndim``
-    dimensions (on ``device`` when given)."""
+                  device: torch.device | None = None,
+                  dtypes=(torch.int32,)) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
+    (packed int32 words by default) with ``ndim`` dimensions (on
+    ``device`` when given)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if t.device.type != "cuda":
@@ -151,8 +154,9 @@ def check_operand(t: torch.Tensor, name: str, ndim: int,
                          f"got device {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must hold packed int32 words, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {list(dtypes)}, got "
+                        f"{t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, got "
                          f"{tuple(t.shape)}")

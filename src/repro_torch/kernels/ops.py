@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import bitmm as _bitmm
 from repro_torch.kernels import closure_delete as _closure_delete
 from repro_torch.kernels import closure_update as _closure_update
+from repro_torch.kernels import embbag as _embbag
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import LAUNCHES, reset_launches  # noqa: F401
@@ -95,3 +96,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
         return _ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     return _flash_attention.flash_attention(q, k, v, causal=causal,
                                             scale=scale)
+
+
+def embedding_bag(table, idx, weights, *, impl: str = "auto"):
+    """Weighted embedding bag (the recsys lookup): table (R, D), idx and
+    weights (B, K) -> (B, D) in the table's type, out[b] = sum_k
+    w[b, k] * table[idx[b, k]] in float32; weight 0 marks padding."""
+    if _resolve(impl, table) == "ref":
+        return _ref.embbag_ref(table, idx, weights)
+    return _embbag.embbag(table, idx, weights)

@@ -2,7 +2,8 @@
 references), mirroring `repro.kernels.ref`: the bit kernels unpack to
 float32, matmul, threshold and pack, and the tiled variants add the
 output's per-tile occupancy; attention is a float32 softmax over the
-whole score matrix.  The CPU path of `kernels/ops.py` runs these; on the
+whole score matrix; the embedding bag gathers its rows and sums their
+float32 products.  The CPU path of `kernels/ops.py` runs these; on the
 card only the comparisons in `chip_smoke.py` and the cuda-marked tests
 do."""
 from __future__ import annotations
@@ -64,6 +65,17 @@ def closure_delete_tiled_ref(r_packed: torch.Tensor, s_packed: torch.Tensor,
     plus the output's per-tile occupancy -> (r' (R, R/32), occ)."""
     out = closure_delete_ref(r_packed, s_packed, affected_packed)
     return out, tile_occupancy_ref(out)
+
+
+def embbag_ref(table: torch.Tensor, idx: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """Weighted embedding bag: table (R, D), idx (B, K) int, weights
+    (B, K) -> (B, D) in the table's type, out[b] = sum_k w[b, k] *
+    table[idx[b, k]] in float32.  Padding entries carry weight 0 (their
+    idx may be arbitrary but in range)."""
+    rows = table[idx].to(torch.float32)                  # (B, K, D)
+    return (rows * weights[..., None].to(torch.float32)).sum(1).to(
+        table.dtype)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

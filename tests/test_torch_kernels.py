@@ -150,39 +150,45 @@ def _need_card():
     return torch.device("cuda")
 
 
+# The card cases are parametrized over shapes; each loops over its
+# densities inside and names the failing one.  Their count on the CPU,
+# where they only skip, is held down: see ROADMAP "How this round works".
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", BITMM_SHAPES + [(33, 96, 160)])
-@pytest.mark.parametrize("density", [0.0, 0.02, 0.5])
-def test_bitmm_kernel_matches_plain_on_card(m, k, n, density):
+def test_bitmm_kernel_matches_plain_on_card(m, k, n):
     dev = _need_card()
-    lhs, rhs = (t(a, dev) for a in bitmm_inputs(m, k, n, density))
-    before = ops.LAUNCHES["bitmm"]
-    got = ops.bitmm_packed(lhs, rhs, impl="cuda")
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["bitmm"] == before + 1
-    assert torch.equal(got, ops.bitmm_packed(lhs, rhs, impl="ref"))
+    for density in (0.0, 0.02, 0.5):
+        lhs, rhs = (t(a, dev) for a in bitmm_inputs(m, k, n, density))
+        before = ops.LAUNCHES["bitmm"]
+        got = ops.bitmm_packed(lhs, rhs, impl="cuda")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["bitmm"] == before + 1, f"density {density}"
+        assert torch.equal(got, ops.bitmm_packed(lhs, rhs, impl="ref")), \
+            f"density {density}"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,b", UPDATE_SHAPES + [(320, 64)])
-@pytest.mark.parametrize("density", [0.0, 0.05, 0.5])
-def test_closure_update_kernel_matches_plain_on_card(c, b, density):
+def test_closure_update_kernel_matches_plain_on_card(c, b):
     dev = _need_card()
-    args = [t(a, dev) for a in update_inputs(c, b, density)]
-    got = ops.closure_update(*args, impl="cuda")
-    torch.cuda.synchronize()
-    assert torch.equal(got, ops.closure_update(*args, impl="ref"))
+    for density in (0.0, 0.05, 0.5):
+        args = [t(a, dev) for a in update_inputs(c, b, density)]
+        got = ops.closure_update(*args, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.closure_update(*args, impl="ref")), \
+            f"density {density}"
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", DELETE_CAPS)
-@pytest.mark.parametrize("aff_frac", [0.0, 0.25, 1.0])
-def test_closure_delete_kernel_matches_plain_on_card(c, aff_frac):
+def test_closure_delete_kernel_matches_plain_on_card(c):
     dev = _need_card()
-    args = [t(a, dev) for a in delete_inputs(c, aff_frac)]
-    got = ops.closure_delete(*args, impl="cuda")
-    torch.cuda.synchronize()
-    assert torch.equal(got, ops.closure_delete(*args, impl="ref"))
+    for aff_frac in (0.0, 0.25, 1.0):
+        args = [t(a, dev) for a in delete_inputs(c, aff_frac)]
+        got = ops.closure_delete(*args, impl="cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ops.closure_delete(*args, impl="ref")), \
+            f"affected fraction {aff_frac}"
 
 
 @pytest.mark.cuda
