@@ -6,7 +6,10 @@ Phases, one status line each; the first failure raises and exits
 non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
   2. build      — nvcc builds kernels B1-B7 from src/repro_torch/csrc;
-                  registers and shared memory per kernel (-Xptxas -v).
+                  registers and shared memory per kernel (-Xptxas -v);
+                  B7's bf16 and f16 instantiations must hold wgmma
+                  (HGMMA) and no mma.sync (HMMA) in their SASS
+                  (cuobjdump, where the toolkit has it).
   3. kernels    — every kernel bit-identical to its plain torch version
                   at the shapes and densities of tests/test_kernels.py
                   (B1-B3) and over windows R in {32, 96, 1024, 4096},
@@ -21,13 +24,16 @@ non-zero:
                   plain version in bf16, f16 and f32 at the LM main path's
                   shape (4, 12, 2048, 128) over 2 KV heads, a ragged T,
                   a decode-like Tq=1 / Tk=2080, Tq < Tk and Tq > Tk,
-                  non-causal, and d = 64 and 16, every element within
+                  non-causal, d = 64, 32 (Tk = 2049, 6 query heads a KV
+                  head) and 16, every element within
                   its rounding bound (ATTN_TOL: bf16 2^-7 |want| +
                   2^-8 sum_j p_j |v_j|, f16 2^-10 and 2^-11, capped at
                   2e-2 / 4e-3; f32 1e-4);
                   the same bound must reject the main shape's output
-                  with one 64-key tile left out; its library yardstick
-                  is one scaled_dot_product_attention call.  B6 (the
+                  with 64 keys left out; its library yardstick is one
+                  scaled_dot_product_attention call, timed turn for turn
+                  with B7 (kernel, SDPA, SDPA, kernel), with B7's TFLOP/s
+                  and its ptxas registers, shared memory and spills.  B6 (the
                   embedding bag) against its plain version at the shapes
                   of tests/test_kernels.py in f32 and bf16 with 0-weight
                   padding, at ragged widths, at the xDeepFM main path's
@@ -136,6 +142,15 @@ REC_STEPS = 20                  # timed forward calls at serve_p99
 BIT_KERNELS = ("bitmm", "closure_update", "closure_delete",
                "closure_update_tiled", "closure_delete_tiled")
 
+# -Xptxas -v per kernel instantiation (phase 2): registers, static shared
+# memory, spills
+PTXAS: dict = {}
+# B7's dynamic shared memory a block, by head dim (csrc/flash_attention.cu
+# Tile<D>: Q and O buffers of 128 rows, two stages of 128-key K and V
+# tiles, 10 mbarriers, 1024 bytes of alignment slack)
+B7_SMEM = {d: 2 * 128 * d * 2 + 2 * 2 * 128 * d * 2 + 8 * 10 + 1024
+           for d in (16, 32, 64, 128)}
+
 KERNELS = {
     "bitmm": ("src/repro_torch/csrc/bitmm.cu", "src/repro/kernels/bitmm.py:50"),
     "closure_update": ("src/repro_torch/csrc/closure_update.cu",
@@ -203,6 +218,10 @@ def phase_build():
                           m.group(1))
             if t:   # one instantiation per (type, head dim)
                 kernel = f"flash_attention<{t.group(1)}, d={t.group(2)}>"
+            t = re.search(r"flash_attention_f32_kernelILi(\d+)E",
+                          m.group(1))
+            if t:
+                kernel = f"flash_attention<float, d={t.group(1)}>"
             t = re.search(r"embbag_kernelILb([01])ELi(\d+)E", m.group(1))
             if t:   # one instantiation per (type, load width)
                 kernel = (f"embbag<{'bf16' if t.group(1) == '1' else 'f32'}"
@@ -210,10 +229,42 @@ def phase_build():
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             smem = re.search(r"(\d+) bytes smem", line)
+            PTXAS.setdefault(kernel, {}).update(
+                registers=int(m.group(1)),
+                static_smem=int(smem.group(1)) if smem else 0)
             say("build", f"{kernel}: {m.group(1)} registers, "
                 f"{smem.group(1) if smem else 0} bytes static shared memory")
         if "spill" in line and kernel:
+            PTXAS.setdefault(kernel, {})["spills"] = line.strip()
             say("build", f"{kernel}: {line.strip()}")
+    b7_sass(lib)
+
+
+def b7_sass(lib) -> None:
+    """B7's bf16 and f16 instantiations must compute their products with
+    wgmma (HGMMA in the SASS) and hold no mma.sync (HMMA)."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        say("build", f"{tool} not found: B7's SASS not checked")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600).stdout
+    found = {}
+    for body in re.split(r"\n\s+Function : ", sass)[1:]:
+        t = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E",
+                      body.split("\n", 1)[0])
+        if t:
+            found[f"{t.group(1)}, d={t.group(2)}"] = (
+                len(re.findall(r"\bHGMMA\b", body)),
+                len(re.findall(r"\bHMMA\b", body)))
+    check(len(found) == 8 and all(g > 0 and h == 0
+                                  for g, h in found.values()),
+          f"B7's 16-bit instantiations must use wgmma and no mma.sync: "
+          f"(HGMMA, HMMA) per instantiation {found}")
+    say("build", "B7's 16-bit instantiations compute with wgmma: (HGMMA, "
+        f"HMMA) in the SASS of each {found}")
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -239,14 +290,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
-    launch over ``reps`` calls of ``fn``, from `torch.profiler`: the
-    kernel alone, without the host time of its wrapper (which sets the
-    per-call time of a kernel shorter than its launch)."""
+def profiled(fn, reps: int):
+    """`torch.profiler` key averages of ``reps`` calls of ``fn`` (CUDA
+    activity only), after one warm-up call."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.launch.profile_ticks import _device_us
 
     fn()
     torch.cuda.synchronize()
@@ -254,11 +301,29 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if f"{kernel}_kernel" in e.key]
+    return prof.key_averages()
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
+    launch over ``reps`` calls of ``fn``, from `torch.profiler`: the
+    kernel alone, without the host time of its wrapper (which sets the
+    per-call time of a kernel shorter than its launch)."""
+    from repro_torch.launch.profile_ticks import _device_us
+
+    events = [e for e in profiled(fn, reps) if f"{kernel}_kernel" in e.key]
     # the mean over the launches the profiler recorded (it may drop one)
     launches = sum(e.count for e in events)
     check(launches > 0, f"the profiler saw no launch of {kernel}")
     return sum(_device_us(e) for e in events) / 1e3 / launches
+
+
+def device_ms_per_call(fn, reps: int) -> float:
+    """Device milliseconds of every kernel ``fn`` launches, per call over
+    ``reps`` calls, from `torch.profiler`."""
+    from repro_torch.launch.profile_ticks import _device_us
+
+    return sum(_device_us(e) for e in profiled(fn, reps)) / 1e3 / reps
 
 
 def mismatch(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -512,6 +577,8 @@ def flash_attention_records(gen):
         ((1, 4, 2, 80, 50, 64), True, (bf16, f32)),                # Tq > Tk
         ((2, 12, 2, 512, 512, 128), False, (bf16, f32)),           # non-causal
         ((2, 8, 2, 256, 256, 64), True, (bf16, f16, f32)),         # d = 64
+        ((1, 6, 1, 200, 2049, 32), True, (bf16, f16)),   # d = 32, Tk 2049
+        ((1, 3, 1, 257, 1000, 16), False, (bf16,)),      # group 3, Tk 1000
         ((LM_PARITY_BATCH, 4, 2, LM_PARITY_PROMPT, LM_PARITY_PROMPT, 16),
          True, (bf16, f32)),                                      # d = 16
     ]
@@ -544,8 +611,9 @@ def flash_attention_records(gen):
         "kernel's probabilities to 8 / 11 bits)")
 
     # the bound must see a fault on the late rows, where |o| is ~0.03:
-    # the plain version with one 64-key tile left out stands in for a
-    # kernel that skipped that tile
+    # the plain version with 64 keys left out stands in for a kernel that
+    # skipped them (half of one of B7's 128-key tiles: a smaller fault
+    # than a skipped tile)
     b, hq, hkv, t, _, d = main
     q, k, v = qkv(*main, bf16)
     want = ops.flash_attention(q, k, v, impl="ref")
@@ -559,30 +627,67 @@ def flash_attention_records(gen):
         f"is {r:.3g} times its bound (max abs err {e:.3g}): rejected")
     del want
 
-    # timings at the LM prefill's shape
+    # timings at the LM prefill's shape: B7 and SDPA turn for turn in this
+    # call (kernel, SDPA, SDPA, kernel)
     kx = k.repeat_interleave(hq // hkv, dim=1)
     vx = v.repeat_interleave(hq // hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rec = {"ms": cuda_ms(lambda: ops.flash_attention(q, k, v, impl="cuda"),
-                         20),
+
+    def kern():
+        return ops.flash_attention(q, k, v, impl="cuda")
+
+    def library():
+        return sdpa(q, kx, vx, is_causal=True)
+
+    turns = [cuda_ms(fn, 20) for fn in (kern, library, library, kern)]
+    rec = {"ms": (turns[0] + turns[3]) / 2,
            "plain_ms": cuda_ms(lambda: ops.flash_attention(q, k, v,
                                                            impl="ref"), 3),
-           "library_ms": cuda_ms(lambda: sdpa(q, kx, vx, is_causal=True), 20),
+           "library_ms": (turns[1] + turns[2]) / 2,
            "max_abs_err": worst[bf16]}
-    device = kernel_device_ms(lambda: ops.flash_attention(q, k, v,
-                                                          impl="cuda"),
-                              20, "flash_attention")
+    device = kernel_device_ms(kern, 20, "flash_attention")
+    library_device = device_ms_per_call(library, 20)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     flops = 2 * 2 * b * hq * d * causal_pairs(t, t, True)
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, BF16_FLOP_PER_S)
     say("kernels", f"flash_attention ({b}, {hq}, {t}, {d}) over {hkv} KV "
-        f"heads, bf16, causal: kernel_ms={rec['ms']:.4f} (device_ms="
-        f"{device:.4f} alone, {flops / device / 1e9:.1f} TFLOP/s) "
-        f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
+        f"heads, bf16, causal, turn for turn: kernel_ms {turns[0]:.4f}, "
+        f"SDPA {turns[1]:.4f}, SDPA {turns[2]:.4f}, kernel_ms "
+        f"{turns[3]:.4f}; kernel / SDPA {rec['ms'] / rec['library_ms']:.3f}"
+        f"; device_ms={device:.4f} alone ({flops / device / 1e9:.1f} "
+        f"TFLOP/s, {device / rec['bound_ms']:.2f}x the bound; SDPA's "
+        f"kernels {library_device:.4f} ms a call) plain_ms="
+        f"{rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4f} "
         f"({rec['bound_by']}: {flops:.4g} flop, {nbytes} bytes) "
         f"library_ms={rec['library_ms']:.4f} (one scaled_dot_product_"
         "attention call, K/V expanded to Hq: a yardstick only, the port "
         "never calls it)")
+    # the same turns at shapes off the main path: a yardstick for the
+    # open questions (PERF.md section 7), not a check
+    for shape, causal in (((b, hq, hkv, t, t, d), False),
+                          ((b, hq, hkv, t, t, 64), True),
+                          ((1, 16, 16, 8192, 8192, 128), True)):
+        q2, k2, v2 = qkv(*shape, bf16)
+        g = shape[1] // shape[2]
+        kx2, vx2 = (x.repeat_interleave(g, dim=1) for x in (k2, v2))
+        fl = 2 * 2 * shape[0] * shape[1] * shape[5] * causal_pairs(
+            shape[3], shape[4], causal)
+        fns = (lambda: ops.flash_attention(q2, k2, v2, causal=causal,
+                                           impl="cuda"),
+               lambda: sdpa(q2, kx2, vx2, is_causal=causal))
+        ms = [cuda_ms(fns[i], 10) for i in (0, 1, 1, 0)]
+        kms, lms = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        say("kernels", f"flash_attention {shape} causal={causal} bf16, turn "
+            f"for turn: kernel_ms {kms:.4f} ({fl / kms / 1e9:.1f} TFLOP/s), "
+            f"SDPA {lms:.4f} ({fl / lms / 1e9:.1f}), kernel / SDPA "
+            f"{kms / lms:.3f}")
+        del q2, k2, v2, kx2, vx2
+    ptx = PTXAS.get("flash_attention<13__nv_bfloat16, d=128>", {})
+    say("kernels", f"flash_attention<bf16, d=128> (ptxas -v): "
+        f"{ptx.get('registers')} registers a thread at launch (384 "
+        f"threads; setmaxnreg gives the consumers 240, the producer 24), "
+        f"{ptx.get('static_smem')} bytes static and {B7_SMEM[128]} bytes "
+        f"dynamic shared memory, {ptx.get('spills', 'spills not reported')}")
     return rec
 
 
@@ -795,7 +900,8 @@ def lm_parity():
 
     cfg = dataclasses.replace(
         lm_common.smoke_cfg(registry.lm_config(LM_ARCH)), dtype=torch.float32)
-    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT)).astype(np.int64)
     runs = {}

@@ -30,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 SOURCES = ("bitmm.cu", "closure_update.cu", "closure_delete.cu",
            "closure_update_tiled.cu", "closure_delete_tiled.cu",
            "flash_attention.cu", "embbag.cu")
-HEADERS = ("bitrow.cuh",)
+HEADERS = ("bitrow.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIB_NAME = "librepro_torch_kernels.so"

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.engine import resolve_device
+
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -64,10 +66,11 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 def dense_init(generator: torch.Generator | None, shape, in_axis: int = 0,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Normal(0, 1 / fan_in) drawn in float32 from ``generator`` on
-    ``device``, then cast to ``dtype``.  On the meta device nothing is
-    drawn (the generator is not used)."""
+    ``device`` (None: the card; raises without one), then cast to
+    ``dtype``.  On the meta device nothing is drawn (the generator is not
+    used)."""
     scale = (1.0 / max(1, shape[in_axis])) ** 0.5
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     if device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
@@ -134,11 +135,11 @@ def _layer_defs(cfg: LMConfig):
 
 def init_params(cfg: LMConfig, generator: torch.Generator | None = None, *,
                 device=None) -> Dict:
-    """Random params on ``device`` (None: the CPU) drawn from
-    ``generator`` (None: one on ``device`` seeded with 0): norms 1, biases
-    0, matrices Normal(0, 1 / fan_in) in ``cfg.dtype``.  On
-    ``torch.device("meta")`` only the shapes and types are made."""
-    device = torch.device("cpu" if device is None else device)
+    """Random params on ``device`` (None: the card; raises without one)
+    drawn from ``generator`` (None: one on ``device`` seeded with 0):
+    norms 1, biases 0, matrices Normal(0, 1 / fan_in) in ``cfg.dtype``.
+    On ``torch.device("meta")`` only the shapes and types are made."""
+    device = resolve_device(device)
     if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     layers = {}

@@ -141,10 +141,20 @@ def _need_card():
 TOL = {torch.bfloat16: (2 ** -7, 2 ** -8, 1e-6, 2e-2),
        torch.float16: (2 ** -10, 2 ** -11, 1e-6, 4e-3),
        torch.float32: (0.0, 0.0, 1e-4, 1e-4)}
-CARD_SHAPES = [(2, 12, 2, 256, 256, 128), (1, 12, 2, 100, 100, 128),
-               (2, 4, 2, 1, 300, 64), (1, 6, 3, 70, 200, 64),
-               (2, 4, 2, 130, 130, 16), (1, 2, 1, 33, 65, 32),
-               (1, 4, 2, 80, 50, 16)]
+# Groups of (B, Hq, Hkv, Tq, Tk, d), each group one test case, so the
+# collected count stays put as shapes are added.  Together they cross the
+# kernel's edges: 128-row query tiles and 128-key tiles (Tq not a multiple
+# of 128, Tk = 1000 and 2049), GQA groups of 1, 2, 3 and 6, every d, Tq = 1,
+# and Tq > Tk (causal rows that see no key give 0).
+CARD_SHAPES = [
+    [(2, 12, 2, 256, 256, 128), (1, 6, 1, 300, 2049, 128)],
+    [(1, 12, 2, 100, 100, 128), (1, 3, 1, 130, 1000, 128)],
+    [(2, 4, 2, 1, 300, 64), (1, 6, 1, 1, 2049, 64)],
+    [(1, 6, 3, 70, 200, 64), (2, 3, 3, 200, 1000, 64)],
+    [(2, 4, 2, 130, 130, 16), (1, 6, 2, 129, 2049, 16)],
+    [(1, 2, 1, 33, 65, 32), (1, 6, 1, 257, 1000, 32)],
+    [(1, 4, 2, 80, 50, 16), (1, 3, 3, 300, 130, 128)],
+]
 
 
 @pytest.mark.cuda
@@ -153,37 +163,45 @@ CARD_SHAPES = [(2, 12, 2, 256, 256, 128), (1, 12, 2, 100, 100, 128),
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain_on_card(shape, dtype, causal):
     dev = _need_card()
-    q, k, v = (torch.from_numpy(x).to(dev, dtype) for x in qkv(*shape))
-    before = ops.LAUNCHES["flash_attention"]
-    got = ops.flash_attention(q, k, v, causal=causal, impl="cuda")
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
-    want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
-    assert got.dtype == dtype and got.shape == want.shape
-    out, prob, atol, cap = TOL[dtype]
-    err = (got.float() - want.float()).abs()
-    tol = out * want.float().abs() + atol
-    if prob:        # sum_j p_j |v_j|: the plain version on |v|, in f32
-        tol += prob * ops.flash_attention(q.float(), k.float(),
-                                          v.float().abs(), causal=causal,
-                                          impl="ref")
-    ratio = float((err / tol.clamp(max=cap)).max())
-    assert ratio <= 1, (f"error {ratio:.3g} times its bound (max abs err "
-                        f"{float(err.max())})")
+    for one in shape:
+        q, k, v = (torch.from_numpy(x).to(dev, dtype) for x in qkv(*one))
+        before = ops.LAUNCHES["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal, impl="cuda")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        want = ops.flash_attention(q, k, v, causal=causal, impl="ref")
+        assert got.dtype == dtype and got.shape == want.shape
+        out, prob, atol, cap = TOL[dtype]
+        err = (got.float() - want.float()).abs()
+        tol = out * want.float().abs() + atol
+        if prob:    # sum_j p_j |v_j|: the plain version on |v|, in f32
+            tol += prob * ops.flash_attention(q.float(), k.float(),
+                                              v.float().abs(), causal=causal,
+                                              impl="ref")
+        ratio = float((err / tol.clamp(max=cap)).max())
+        assert ratio <= 1, (f"{one}: error {ratio:.3g} times its bound "
+                            f"(max abs err {float(err.max())})")
+        tq, tk = one[3], one[4]
+        if causal and tq > tk:      # rows that see no key
+            assert torch.equal(got[:, :, :tq - tk],
+                               torch.zeros_like(got[:, :, :tq - tk])), one
 
 
 @pytest.mark.cuda
 def test_flash_attention_kernel_on_strided_views_on_card():
     dev = _need_card()
-    q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16)
-               for x in qkv(2, 12, 2, 96, 96, 128, seed=5))
-    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
-             for x in (q, k, v)]
-    got = ops.flash_attention(*views, impl="cuda")
-    torch.cuda.synchronize()
-    assert got.stride() == views[0].stride()
-    torch.testing.assert_close(got, ops.flash_attention(q, k, v, impl="cuda"),
-                               rtol=0, atol=0)
+    for shape in [(2, 12, 2, 96, 96, 128), (1, 6, 1, 200, 1000, 64),
+                  (2, 4, 2, 1, 300, 32)]:
+        q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                   for x in qkv(*shape, seed=5))
+        views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                 for x in (q, k, v)]
+        got = ops.flash_attention(*views, impl="cuda")
+        torch.cuda.synchronize()
+        assert got.stride() == views[0].stride()
+        torch.testing.assert_close(got, ops.flash_attention(q, k, v,
+                                                            impl="cuda"),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -235,6 +235,11 @@ def test_full_width_param_tree_matches_reference_on_meta():
     cfg = tqwen.CFG
     got = TT.init_params(cfg, device=torch.device("meta"))
     assert got["embed"].device.type == "meta"
+    if not torch.cuda.is_available():   # None means the card: no fallback
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TT.init_params(tsmoke(cfg))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcommon.dense_init(None, (4, 4))
     assert set(got) == set(want) and set(got["layers"]) == set(want["layers"])
     n = 0
     for k in ("embed", "unembed", "final_norm"):
