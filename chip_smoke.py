@@ -14,13 +14,25 @@ non-zero:
                   at the shapes and densities of tests/test_kernels.py
                   (B1-B3) and over windows R in {32, 96, 1024, 4096},
                   densities 0 / 1% / 25% / 100%, all-live and no-live
-                  bands (B4, B5, occupancy included), and at the main
+                  bands (B4, B5, occupancy included), over lhs rows
+                  with exactly 0, 1, 7, 8, 9, 31, 32, 33 and all set
+                  bits or one full word (the batch edges of B4/B5's
+                  gathers) at R in {96, 1024, 4096}, B4 at B = 128 and
+                  1024, B5 with every row affected; and at the main
                   paths' shapes (C=16384, B=1024 dense; R=1024, B=128
-                  tiled), with CUDA event times of the kernel, the plain
-                  version and a library yardstick, beside the least time
-                  the card could take (bound); kernel_ms is per call
-                  (CUDA events), device_ms the kernel alone
-                  (torch.profiler).  B7 (flash attention) against its
+                  tiled), each kernel timed turn for turn against its
+                  library yardstick (5 rounds of kernel, library,
+                  library, kernel; the median turn of each side),
+                  beside the plain version and the least time the card
+                  could take (bound); kernel_ms is per call (CUDA
+                  events), device_ms the kernel alone (torch.profiler),
+                  host_ms the wall time per call of calls issued without
+                  a sync.  Then B5's device time at R = 1024 with one
+                  row, one band and every row affected (10 bits a row),
+                  the host cost of the ways to allocate B4/B5's two
+                  outputs, turn for turn, and B5's host time a call step
+                  by step.
+                  B7 (flash attention) against its
                   plain version in bf16, f16 and f32 at the LM main path's
                   shape (4, 12, 2048, 128) over 2 KV heads, a ragged T,
                   a decode-like Tq=1 / Tk=2080, Tq < Tk and Tq > Tk,
@@ -139,6 +151,7 @@ ATTN_TOL = {torch.bfloat16: (2 ** -7, 2 ** -8, 1e-6, 2e-2),
 # 2^-7 of the value.
 EMB_ULP_F32, EMB_ULP_BF16 = 2.0 ** -23, 2.0 ** -7
 REC_STEPS = 20                  # timed forward calls at serve_p99
+TURNS = 5                       # rounds of turns timing a bit kernel
 BIT_KERNELS = ("bitmm", "closure_update", "closure_delete",
                "closure_update_tiled", "closure_delete_tiled")
 
@@ -345,15 +358,118 @@ def bound(nbytes: int, ops: int, ops_per_s: float = INT8_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def fp16_matmul_ms(lhs_packed, rhs_packed, reps: int) -> float:
-    """The library yardstick: one fp16 torch.matmul of the unpacked
-    operands (no packed boolean product exists as one PyTorch call)."""
+def fp16_matmul(lhs_packed, rhs_packed):
+    """The library yardstick: a call of one fp16 torch.matmul of the
+    unpacked operands (no packed boolean product exists as one PyTorch
+    call)."""
     from repro_torch.core import bitset
     a = bitset.unpack_bits(lhs_packed).to(torch.float16)
     b = bitset.unpack_bits(rhs_packed).to(torch.float16)
-    ms = cuda_ms(lambda: torch.matmul(a, b), reps)
-    del a, b
+    return lambda: torch.matmul(a, b)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Wall milliseconds per call (time.perf_counter) of ``reps`` calls
+    issued without a sync, after one warm-up call: the host's time to
+    issue a call, whatever the device does meanwhile."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
     return ms
+
+
+def exact_bit_rows(counts, n: int, width: int, gen):
+    """(n, width/32) packed rows; row i holds exactly counts[i % len]
+    set bits at random columns (a count of None: every bit)."""
+    from repro_torch.core import bitset
+    c = torch.tensor([width if k is None else k for k in counts],
+                     device="cuda")
+    c = c[torch.arange(n, device="cuda") % len(counts)]
+    rank = torch.rand((n, width), generator=gen,
+                      device="cuda").argsort(1).argsort(1)
+    return bitset.pack_bits(rank < c[:, None])
+
+
+# set-bit counts of an lhs row at the batch edges of B4/B5's gathers
+# (or_selected_rows_batched: 8 loads in flight, 32 indices a pass), and
+# every bit of the row
+GATHER_EDGES = (0, 1, 7, 8, 9, 31, 32, 33, None)
+
+
+def gather_edge_rows(n: int, width: int, gen):
+    """exact_bit_rows over GATHER_EDGES, two in three of its empty rows
+    made rows whose bits fill one word: the first word (rows 0, 27, ...)
+    or the last (rows 9, 36, ...)."""
+    rows = exact_bit_rows(GATHER_EDGES, n, width, gen)
+    rows[0::27, 0] = -1
+    rows[9::27, -1] = -1
+    return rows
+
+
+def allocation_turns(like: torch.Tensor, reps: int = 2000):
+    """Host us per call of the ways to allocate the tiled kernels' out
+    (R, R/32) and occ (R/32, R/32) beside the (R, R/32) operand
+    ``like``, turn for turn (each way, then all again in reverse); the
+    wrappers take the last."""
+    r, w = like.shape
+    dev = like.get_device()
+    ways = {
+        "two torch.empty": lambda: (
+            torch.empty((r, w), dtype=torch.int32, device=dev),
+            torch.empty((r // 32, w), dtype=torch.int32, device=dev)),
+        "one torch.empty split in two": lambda: torch.empty(
+            (r + r // 32, w), dtype=torch.int32,
+            device=dev).split_with_sizes((r, r // 32)),
+        "empty_like + new_empty (the wrappers')": lambda: (
+            torch.empty_like(like), like.new_empty((r // 32, w))),
+    }
+    us = {k: 0.0 for k in ways}
+    for k in list(ways) + list(reversed(ways)):
+        us[k] += host_ms(ways[k], reps) * 1e3 / 2
+    return us
+
+
+def launch_path_steps(r_packed, s_packed, aff, reps: int = 2000):
+    """Host us per call of each step of B5's call (and of its library
+    yardstick) on the given operands, in the order the call takes them;
+    the bare ctypes calls bypass the wrapper and its launch count."""
+    from repro_torch.kernels import _build, closure_delete, ops
+    from repro_torch.kernels.ops import _resolve
+
+    dev = r_packed.get_device()
+    r, w = r_packed.shape
+    out, occ = torch.empty_like(r_packed), r_packed.new_empty((w, w))
+    fn = _build._FUNCTIONS["repro_closure_delete_tiled"]
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ptrs = [x.data_ptr() for x in (r_packed, s_packed, aff, out, occ)]
+    operands = ((r_packed, "r", 2, _build.INT32),
+                (s_packed, "s", 2, _build.INT32),
+                (aff, "affected", 1, _build.INT32))
+    library = fp16_matmul(r_packed, s_packed)
+    steps = {
+        "ops.closure_delete_tiled (the whole call)": lambda:
+            ops.closure_delete_tiled(r_packed, s_packed, aff, impl="cuda"),
+        "the wrapper alone": lambda:
+            closure_delete.closure_delete_tiled(r_packed, s_packed, aff),
+        "ops._resolve": lambda: _resolve("cuda", r_packed),
+        "check_operands": lambda: _build.check_operands(*operands),
+        "empty_like + new_empty": lambda: (torch.empty_like(r_packed),
+                                           r_packed.new_empty((w, w))),
+        "five data_ptr()": lambda: (r_packed.data_ptr(), s_packed.data_ptr(),
+                                    aff.data_ptr(), out.data_ptr(),
+                                    occ.data_ptr()),
+        "stream and device getters": lambda: (
+            torch._C._cuda_getCurrentRawStream(dev),
+            torch._C._cuda_getDevice()),
+        "ctypes call, R = 0 (no launch)": lambda: fn(*ptrs, 0, 0, stream),
+        "ctypes call launching the kernel": lambda: fn(*ptrs, r, w, stream),
+        "library: one fp16 torch.matmul": library,
+    }
+    return {k: host_ms(f, reps) * 1e3 for k, f in steps.items()}
 
 
 def phase_kernels():
@@ -408,9 +524,34 @@ def phase_kernels():
                     err[name] = max(err[name], mismatch(out, want),
                                     mismatch(occ, want_occ))
                     n_cases += 1
+    # lhs rows with exactly 0, 1, 7, 8, 9, 31, 32, 33 and all set bits,
+    # and rows whose bits fill one word: B5 with every row affected (its
+    # lhs is r's row) at R = 96, 1024 and 4096; B4 with them as fold-mask
+    # rows at B = 128 and B = 1024
+    for r in (96, 1024, 4096):
+        dele = (gather_edge_rows(r, r, gen), packed((r, r), 0.05, gen),
+                packed((r,), 1.0, gen))
+        for b in (B_TILED, 1024):
+            upd = (packed((r, r), 0.01, gen), gather_edge_rows(r, b, gen),
+                   packed((b, r), 0.05, gen))
+            (out, occ), (want, want_occ) = (
+                ops.closure_update_tiled(*upd, impl="cuda"),
+                ops.closure_update_tiled(*upd, impl="ref"))
+            err["closure_update_tiled"] = max(
+                err["closure_update_tiled"], mismatch(out, want),
+                mismatch(occ, want_occ))
+            n_cases += 1
+        (out, occ), (want, want_occ) = (
+            ops.closure_delete_tiled(*dele, impl="cuda"),
+            ops.closure_delete_tiled(*dele, impl="ref"))
+        err["closure_delete_tiled"] = max(
+            err["closure_delete_tiled"], mismatch(out, want),
+            mismatch(occ, want_occ))
+        n_cases += 1
     torch.cuda.synchronize()
     say("kernels", f"{n_cases} cases on the card (test_kernels.py shapes; "
-        f"tiled windows 32-4096), max abs err per kernel {err}")
+        f"tiled windows 32-4096, lhs rows of 0-33 and all set bits), max "
+        f"abs err per kernel {err}")
     check(not any(err.values()), f"kernel disagrees with its plain "
           f"version at the test shapes: {err}")
 
@@ -421,6 +562,8 @@ def phase_kernels():
 
     def measure(name, label, kernel_fn, plain_fn, lib_args, nbytes, ops_n,
                 reps=20, plain_reps=3, lib_reps=5):
+        """The kernel against its plain version, then its times and the
+        yardstick's, turn for turn (kernel, library, library, kernel)."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if isinstance(got, tuple):   # the tiled kernels: (words, occ)
@@ -429,16 +572,35 @@ def phase_kernels():
             e = mismatch(got, want)
         del got, want
         check(e == 0.0, f"{name} disagrees with its plain version at {label}")
-        rec = {"ms": cuda_ms(kernel_fn, reps),
+        library = fp16_matmul(*lib_args)
+        # TURNS rounds of (kernel, library, library, kernel): the host's
+        # time a call moves by tens of percent within a call, so each side
+        # is the median of its turns, and each kernel turn is paired with
+        # the library turn beside it
+        k_turns, l_turns = [], []
+        for _ in range(TURNS):
+            k_turns.append(cuda_ms(kernel_fn, reps))
+            l_turns += [cuda_ms(library, lib_reps), cuda_ms(library, lib_reps)]
+            k_turns.append(cuda_ms(kernel_fn, reps))
+        won = sum(k < lt for k, lt in zip(k_turns, l_turns))
+        rec = {"ms": float(np.median(k_turns)),
                "plain_ms": cuda_ms(plain_fn, plain_reps),
-               "library_ms": fp16_matmul_ms(*lib_args, lib_reps)}
+               "library_ms": float(np.median(l_turns))}
         device = kernel_device_ms(kernel_fn, reps, name)
+        host, lib_host = host_ms(kernel_fn, reps), host_ms(library, lib_reps)
+        del library
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n)
         rec["max_abs_err"] = max(e, err[name])
-        say("kernels", f"{name} {label}: kernel_ms={rec['ms']:.4f} "
-            f"(device_ms={device:.4f} alone) plain_ms={rec['plain_ms']:.3f} "
-            f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
-            f"library_ms={rec['library_ms']:.3f}")
+        say("kernels", f"{name} {label}, {TURNS} rounds turn for turn: "
+            f"kernel_ms {rec['ms']:.4f} (median; turns "
+            f"{' '.join(f'{x:.4f}' for x in k_turns)}), library_ms "
+            f"{rec['library_ms']:.4f} (median; turns "
+            f"{' '.join(f'{x:.4f}' for x in l_turns)}); kernel / library "
+            f"{rec['ms'] / rec['library_ms']:.3f}, the kernel faster in "
+            f"{won} of {len(k_turns)} adjacent pairs; device_ms={device:.4f} "
+            f"alone; host_ms={host:.4f} a call (library {lib_host:.4f}); "
+            f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4g} "
+            f"({rec['bound_by']})")
         return rec
 
     # B1: a closure squaring (C x C) and a frontier hop (B rows), 1% dense
@@ -491,7 +653,8 @@ def phase_kernels():
         lambda: ops.closure_update_tiled(tiles, mask, rows, impl="ref"),
         (mask, rows), (2 * r * wr + r * B_TILED // 32 + B_TILED * wr
                        + (r // 32) * wr) * 4,
-        2 * popcount_total(mask) * r, reps=200, plain_reps=20, lib_reps=50)
+        2 * popcount_total(mask) * r, reps=1000, plain_reps=20,
+        lib_reps=1000)
     for frac in (0.01, 0.25):
         aff = packed((r,), frac, gen)
         aff_rows = bitset.unpack_bits(aff)
@@ -501,11 +664,42 @@ def phase_kernels():
             lambda: ops.closure_delete_tiled(tiles, s, aff, impl="cuda"),
             lambda: ops.closure_delete_tiled(tiles, s, aff, impl="ref"),
             (tiles, s), (3 * r * wr + wr + (r // 32) * wr) * 4,
-            2 * popcount_total(tiles[aff_rows]) * r, reps=200,
-            plain_reps=20, lib_reps=50)
+            2 * popcount_total(tiles[aff_rows]) * r, reps=1000,
+            plain_reps=20, lib_reps=1000)
         if frac == 0.01:
             records["closure_delete_tiled"] = rec
     del tiles, s, mask, rows
+    # where B5's device time goes at R = 1024, 10 set bits an affected
+    # row: one row affected (one warp gathers), one band (one block's 32
+    # warps), every row (32 blocks on 32 SMs).  Equal times mean one
+    # warp's chain of gathers sets the time, and neither an SM's
+    # throughput nor the number of SMs at work does
+    lhs10, s10 = (exact_bit_rows((10,), r, r, gen),
+                  packed((r, r), 0.01, gen))
+    spread = {}
+    for label, n_aff in (("one row", 1), ("one band", 32), ("every row", r)):
+        aff = torch.zeros((r,), dtype=torch.bool, device="cuda")
+        aff[:n_aff] = True
+        aff = bitset.pack_bits(aff)
+        spread[label] = kernel_device_ms(
+            lambda: ops.closure_delete_tiled(lhs10, s10, aff, impl="cuda"),
+            200, "closure_delete_tiled")
+    say("kernels", f"closure_delete_tiled R={r}, 10 set bits an affected "
+        "row, device_ms by rows affected: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in spread.items()))
+    del lhs10, s10
+    # the host side of a B5 call at the main path's shape, step by step
+    tiles, s = packed((r, r), 0.01, gen), packed((r, r), 0.01, gen)
+    aff = packed((r,), 0.01, gen)
+    alloc = allocation_turns(tiles)
+    say("kernels", f"allocating out ({r}, {wr}) and occ ({r // 32}, {wr}), "
+        "host us a call, turn for turn: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in alloc.items()))
+    steps = launch_path_steps(tiles, s, aff)
+    say("kernels", "closure_delete_tiled R=1024, 1% rows affected, host us "
+        "a call by step: " + "; ".join(f"{k} {v:.3f}"
+                                       for k, v in steps.items()))
+    del tiles, s, aff
     records["flash_attention"] = flash_attention_records(gen)
     torch.cuda.empty_cache()
     records["embbag"] = embbag_records()

@@ -1,5 +1,6 @@
-// Shared warp routine of the packed boolean-product kernels (bitmm,
-// closure_update, closure_delete and their tiled variants).
+// Shared warp routines of the packed boolean-product kernels: bitmm,
+// closure_update and closure_delete use or_selected_rows; their tiled
+// variants use or_selected_rows_batched (below), which computes the same.
 //
 // Layout: LSB-first 32-bit words; column j of a row lives in word j >> 5,
 // bit j & 31.  One warp owns one output row m and 32 consecutive output
@@ -43,6 +44,86 @@ __device__ __forceinline__ uint32_t or_selected_rows(
         const int b = __ffs(bits) - 1;
         bits &= bits - 1;
         if (live) acc |= rhs[(base + b) * static_cast<size_t>(wn) + n];
+      }
+    }
+  }
+  return acc;
+}
+
+// The tiled kernels' variant (B4, B5): the same result as
+// or_selected_rows, with up to kGatherBatch rhs loads in flight instead of
+// one.  or_selected_rows waits for each rhs[j][n] before it looks for the
+// next set bit, so a row costs popcount x (L2 or HBM latency); at 1%
+// density a set word mostly holds one bit, so batching inside a word
+// would not help.  Here the warp numbers the set bits of each 32-word lhs
+// chunk in order (a prefix count of the lanes' popcounts), each lane
+// finds the bit of its own number (a binary search over the prefix counts
+// by shuffle, then a select inside the word), and the warp walks those
+// warp-uniform indices kGatherBatch at a time: all of a batch's loads
+// (independent coalesced 128-byte row segments) issue before any OR.
+constexpr int kGatherBatch = 8;
+
+// Position of set bit number ``r`` (from 0) of ``w``; needs r < popc(w).
+__device__ __forceinline__ int select_set_bit(uint32_t w, int r) {
+  int pos = 0;
+#pragma unroll
+  for (int half = 16; half >= 1; half >>= 1) {
+    const int low = __popc(w & ((1u << half) - 1u));
+    if (r >= low) {
+      r -= low;
+      pos += half;
+      w >>= half;
+    }
+  }
+  return pos;
+}
+
+// acc | OR_{j set in lhs_row} rhs[j][n]; lanes with n >= wn load nothing.
+// All 32 lanes of the warp must call it (full-mask shuffles).
+__device__ __forceinline__ uint32_t or_selected_rows_batched(
+    const uint32_t* __restrict__ lhs_row, int wk,
+    const uint32_t* __restrict__ rhs, int wn, int n, uint32_t acc) {
+  const int lane = threadIdx.x & 31;
+  const bool live = n < wn;
+  const uint32_t* __restrict__ col = rhs + (live ? n : 0);
+  for (int kb = 0; kb < wk; kb += 32) {
+    const int kw = kb + lane;
+    const uint32_t word = kw < wk ? lhs_row[kw] : 0u;
+    if (__ballot_sync(kFullMask, word != 0u) == 0u) continue;
+    // incl = set bits in the words of lanes 0..lane (inclusive scan)
+    int incl = __popc(word);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += up;
+    }
+    const int total = __shfl_sync(kFullMask, incl, 31);
+    for (int t0 = 0; t0 < total; t0 += 32) {
+      // lane finds set bit number t = t0 + lane of the chunk: its word is
+      // the first lane whose inclusive count exceeds t (for t >= total the
+      // index is never read)
+      const int t = t0 + lane;
+      int owner = 0;
+#pragma unroll
+      for (int s = 16; s >= 1; s >>= 1) {
+        if (__shfl_sync(kFullMask, incl, owner + s - 1) <= t) owner += s;
+      }
+      const uint32_t owned = __shfl_sync(kFullMask, word, owner);
+      const int before = __shfl_sync(kFullMask, incl, owner) - __popc(owned);
+      const int j = (kb + owner) * 32 +
+                    select_set_bit(owned, t < total ? t - before : 0);
+      const int count = min(32, total - t0);
+      for (int q0 = 0; q0 < count; q0 += kGatherBatch) {
+        uint32_t got[kGatherBatch];
+#pragma unroll
+        for (int q = 0; q < kGatherBatch; ++q) {
+          const int jq = __shfl_sync(kFullMask, j, q0 + q);
+          got[q] = (live && q0 + q < count)
+                       ? col[static_cast<size_t>(jq) * wn]
+                       : 0u;
+        }
+#pragma unroll
+        for (int q = 0; q < kGatherBatch; ++q) acc |= got[q];
       }
     }
   }

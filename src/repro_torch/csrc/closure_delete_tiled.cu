@@ -12,22 +12,39 @@
 // src/repro/kernels/closure_delete.py:134 (pl.pallas_call at :169), which
 // runs a block on the MXU only when its row band holds an affected,
 // non-empty row and the hop matrix has bits in its column band, and
-// writes the block's occupancy in its epilogue.  Here a thread block owns
-// one 32-row band and 32 output words, one warp per row: an unaffected
-// row is copied through, and an affected row runs the bitmm warp routine
-// (bitrow.cuh) over r[w] as the lhs row, so an empty row costs one ballot
-// per 32 words and an s word is loaded only for a set bit of r[w] — the
-// same skips, at row and bit grain.  One OR across the band's 32 rows in
-// shared memory then gives its 32 occupancy entries.
+// writes the block's occupancy in its epilogue.
+//
+// What bounds it on an H100: not bytes.  At the main path's shape (R =
+// 1024) r, s and out are 128 KiB each, occ 4 KiB: ~0.4 MiB, about 0.12 us
+// of HBM traffic; the ops, 2 * popcount(affected rows of r) * R, are
+// fewer still.  A call's time is the host's: the wrapper's checks, its two
+// allocations, the ctypes call and the launch take several times the
+// 2-3 us of device work (PERF.md section 6).  The device time is the
+// launch plus the dependent gathers of an affected row: at 1% density its
+// ~10 set bits cost ~10 serial L2/HBM round trips when gathered one at a
+// time (5.3-6.3 us of device time; NVIDIA H100 80GB HBM3, 700 W; PERF.md
+// section 6).
+//
+// What the design does about it.  Host: one launch, no scratch, no
+// memset; the wrapper checks its operands in one pass and allocates its
+// two outputs, and the shared launch path (kernels/_build.py) calls this
+// entry point through a cached ctypes function on the raw current
+// stream.  Device: a thread block owns one 32-row band and 32 output
+// words, one warp per row: an unaffected row is copied through, and an
+// affected row runs or_selected_rows_batched (bitrow.cuh) over r[w] as
+// the lhs row, up to 8 s[x] loads in flight a warp, so ~10 set bits cost
+// two round trips; an empty row costs one ballot per 32 words and an s
+// word is loaded only for a set bit of r[w] — the Pallas kernel's skips,
+// at row and bit grain.  One OR across the band's 32 rows in shared
+// memory then gives its 32 occupancy entries.  The band stays one
+// 1024-thread block: with 10 set bits an affected row, one row affected
+// takes ~2.2 us on the device, one band ~3.1 us and all 32 bands ~3.2 us
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6), so neither the 32
+// SMs at work nor the band's barriers set the time at the main path's 1%
+// of rows affected (about one row a band).
 //
 // The output is a separate buffer: other warps read r[w] as their lhs row
 // while this warp writes row w, so writing in place would race.
-//
-// What bounds it on an H100 at the main path's shape (R = 1024): r, s and
-// out are 128 KiB each, occ 4 KiB, ~0.4 MiB -> about 0.12 us of HBM
-// traffic; the ops, 2 * popcount(affected rows of r) * R, are fewer
-// still.  So the launch latency sets the time, and the design keeps to one
-// launch with no scratch.
 #include "bitrow.cuh"
 
 namespace {
@@ -45,8 +62,8 @@ closure_delete_tiled_kernel(const uint32_t* __restrict__ r,
   const uint32_t old = n < w ? r[at] : 0u;
   uint32_t acc = old;
   if ((affected[row >> 5] >> (row & 31)) & 1u) {  // uniform across the warp
-    acc = repro_torch::or_selected_rows(r + static_cast<size_t>(row) * w, w,
-                                        s, w, n, old);
+    acc = repro_torch::or_selected_rows_batched(
+        r + static_cast<size_t>(row) * w, w, s, w, n, old);
   }
   if (n < w) out[at] = acc;
   repro_torch::store_band_occupancy(acc, n, w,

@@ -11,20 +11,33 @@
 // src/repro/kernels/closure_update.py:120 (pl.pallas_call at :155), which
 // runs a (128-row, 256-column) block on the MXU only when the block's
 // mask rows and rows columns both carry bits, and writes the block's
-// occupancy in its epilogue.  Here a thread block owns one 32-row band
-// and 32 output words: each warp folds one row with the bitmm warp
-// routine (bitrow.cuh) starting from the old tiles word, so a row whose
-// mask is empty costs one ballot per 32 mask words and a copy (the
-// row-band skip, at row grain), and a rows word is loaded only for a set
-// mask bit (the column-band skip needs no test).  Then one OR across the
-// band's 32 rows in shared memory gives its 32 occupancy entries: no
-// second pass over the output.
+// occupancy in its epilogue.
 //
-// What bounds it on an H100 at the main path's shape (R = 1024, B = 128):
-// tiles in and out 128 KiB each, mask and rows 16 KiB each, occ 4 KiB,
-// ~0.3 MiB -> under 0.1 us of HBM traffic; the ops, 2 * popcount(mask) *
-// R, are fewer still.  So the launch latency (a few us) sets the time, and
-// the design keeps to one launch with no scratch.
+// What bounds it on an H100: not bytes.  At the main path's shape (R =
+// 1024, B = 128) tiles in and out are 128 KiB each, mask and rows 16 KiB
+// each, occ 4 KiB: ~0.3 MiB, under 0.1 us of HBM traffic; the ops, 2 *
+// popcount(mask) * R, are fewer still.  A call's time is the host's (the
+// wrapper's checks, its allocations, the ctypes call and the launch), and
+// the device time is the launch plus a chain of dependent memory round
+// trips a warp: the mask row, one rows[j] gather per set mask bit, the
+// store and the band's occupancy barrier (2.9 us of device time with the
+// gathers one at a time; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).
+//
+// What the design does about it.  Host: one launch, no scratch, no
+// memset; the wrapper checks its operands in one pass and allocates its
+// two outputs, and the shared launch path (kernels/_build.py) calls this
+// entry point through a cached ctypes function on the raw current
+// stream.  Device: a thread block owns one 32-row band and 32 output
+// words, one warp per row (lane = word), starting from the old tiles
+// word; a row whose mask is empty costs one ballot per 32 mask words and
+// a copy (the row-band skip, at row grain), and a rows word is loaded
+// only for a set mask bit (the column-band skip needs no test).  The
+// gathers go through or_selected_rows_batched (bitrow.cuh): up to 8
+// rows[j] loads in flight a warp instead of one, so a row costs
+// ceil(popcount / 8) round trips, not popcount.  Then one OR across the
+// band's 32 rows in shared memory gives its 32 occupancy entries: no
+// second pass over the output.  The band stays one 1024-thread block, as
+// in B5 (closure_delete_tiled.cu says why).
 #include "bitrow.cuh"
 
 namespace {
@@ -40,7 +53,7 @@ closure_update_tiled_kernel(const uint32_t* __restrict__ tiles,
   const int n = blockIdx.x * 32 + (threadIdx.x & 31);
   const size_t at = static_cast<size_t>(row) * w + n;
   const uint32_t old = n < w ? tiles[at] : 0u;
-  const uint32_t acc = repro_torch::or_selected_rows(
+  const uint32_t acc = repro_torch::or_selected_rows_batched(
       mask + static_cast<size_t>(row) * wb, wb, rows, w, n, old);
   if (n < w) out[at] = acc;
   repro_torch::store_band_occupancy(acc, n, w,

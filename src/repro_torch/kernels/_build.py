@@ -7,6 +7,19 @@ shared library with a plain C interface under
 repository root; `library` loads it with ``ctypes``.  Nothing here runs
 when the module is imported, so the CPU tests can import every module.
 
+The launch path, shared by every wrapper and kept lean because B4 and B5
+do a few us of device work a call: `check_operands` checks all of a
+wrapper's operands in one pass, reading each attribute once; `launch`
+calls the entry point's ctypes function, looked up once when the library
+is loaded, on the raw pointer of the card's current stream
+(``torch._C._cuda_getCurrentRawStream``, bound at the first launch since
+the CPU build of torch lacks it), and enters a device guard only when
+the operands' card is not the current one.  Wrappers allocate their
+outputs with torch (B4, B5: ``torch.empty_like`` and ``new_empty``;
+``chip_smoke.py`` phase 3 times them against other ways) and pass data
+pointers and sizes; each entry point launches with ``<<<>>>`` and
+returns ``cudaGetLastError``, and a non-zero return code raises.
+
 `LAUNCHES` counts kernel launches, one per successful launch, bumped by
 each wrapper (`kernels/bitmm.py`, `closure_update.py`,
 `closure_delete.py`, the last two holding the dense and the tiled
@@ -138,41 +151,69 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
     return lib
 
 
-def check_operand(t: torch.Tensor, name: str, ndim: int,
-                  device: torch.device | None = None,
-                  dtypes=(torch.int32,)) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
-    (packed int32 words by default) with ``ndim`` dimensions (on
-    ``device`` when given)."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor for the kernel, "
-                         f"got device {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} must be one of {list(dtypes)}, got "
-                        f"{t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dimensions, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+# the launch path's state, filled at the first launch (the CPU build of
+# torch has no CUDA getters): C entry point -> its ctypes function, and
+# torch's raw-stream and current-device getters
+_FUNCTIONS: dict = {}
+_CUDA: list = []
+
+INT32 = (torch.int32,)
 
 
-def launch(name: str, entry: str, device: torch.device, *args) -> None:
-    """Call C entry point ``entry`` on ``device``'s current stream with
-    ``args`` (tensors pass their data pointers), raise if the launch
-    failed, and count it under ``name``."""
-    fn = getattr(library(), entry)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*ptrs, stream)
+def check_operands(*operands):
+    """Raise unless every ``(tensor, name, ndim, dtypes)`` of ``operands``
+    is a contiguous CUDA tensor of one of ``dtypes`` with ``ndim``
+    dimensions, all on the first one's card; returns that card's index
+    and the operands' shapes.  Checks the operands in order and reads
+    each attribute once."""
+    index, shapes = None, []
+    for t, name, ndim, dtypes in operands:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor for the kernel, "
+                             f"got device {t.device}")
+        at = t.get_device()
+        if index is None:
+            index, first = at, t
+        elif at != index:
+            raise ValueError(f"{name} is on {t.device}, expected "
+                             f"{first.device}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} must be one of {list(dtypes)}, got "
+                            f"{t.dtype}")
+        shape = t.shape
+        if len(shape) != ndim:
+            raise ValueError(f"{name} must have {ndim} dimensions, got "
+                             f"{tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        shapes.append(shape)
+    return index, shapes
+
+
+def _bind_cuda() -> list:
+    from torch._C import _cuda_getCurrentRawStream, _cuda_getDevice
+    library()
+    _CUDA[:] = [_cuda_getCurrentRawStream, _cuda_getDevice]
+    return _CUDA
+
+
+def launch(name: str, entry: str, index: int, *args) -> None:
+    """Call C entry point ``entry`` with ``args`` (data pointers and
+    sizes) on the current stream of card ``index``, raise if the launch
+    failed, and count it under ``name``.  The device guard is entered only
+    when ``index`` is not the current card."""
+    stream_of, current = _CUDA or _bind_cuda()
+    if index == current():
+        rc = _FUNCTIONS[entry](*args, stream_of(index))
+    else:
+        with torch.cuda.device(index):
+            rc = _FUNCTIONS[entry](*args, stream_of(index))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

@@ -13,15 +13,14 @@ from repro_torch.kernels import _build
 
 
 def bitmm(lhs_packed: torch.Tensor, rhs_packed: torch.Tensor) -> torch.Tensor:
-    _build.check_operand(lhs_packed, "lhs", 2)
-    _build.check_operand(rhs_packed, "rhs", 2, lhs_packed.device)
-    m, wk = lhs_packed.shape
-    k, wn = rhs_packed.shape
+    dev, ((m, wk), (k, wn)) = _build.check_operands(
+        (lhs_packed, "lhs", 2, _build.INT32),
+        (rhs_packed, "rhs", 2, _build.INT32))
     if wk * 32 != k:
         raise ValueError(f"lhs has {wk} words per row, so rhs needs "
-                         f"{wk * 32} rows, got {tuple(rhs_packed.shape)}")
-    out = torch.empty((m, wn), dtype=torch.int32, device=lhs_packed.device)
-    if out.numel():
-        _build.launch("bitmm", "repro_bitmm", lhs_packed.device,
-                      lhs_packed, rhs_packed, out, m, wk, wn)
+                         f"{wk * 32} rows, got {(k, wn)}")
+    out = torch.empty((m, wn), dtype=torch.int32, device=dev)
+    if m and wn:
+        _build.launch("bitmm", "repro_bitmm", dev, lhs_packed.data_ptr(),
+                      rhs_packed.data_ptr(), out.data_ptr(), m, wk, wn)
     return out

@@ -20,40 +20,36 @@ from repro_torch.kernels import _build
 
 def closure_delete(r_packed: torch.Tensor, s_packed: torch.Tensor,
                    affected_packed: torch.Tensor) -> torch.Tensor:
-    dev = r_packed.device
-    _build.check_operand(r_packed, "r", 2)
-    _build.check_operand(s_packed, "s", 2, dev)
-    _build.check_operand(affected_packed, "affected", 1, dev)
-    c, w = r_packed.shape
-    if tuple(s_packed.shape) != (c, w) or w * 32 != c \
-            or tuple(affected_packed.shape) != (w,):
+    dev, ((c, w), s_shape, a_shape) = _build.check_operands(
+        (r_packed, "r", 2, _build.INT32), (s_packed, "s", 2, _build.INT32),
+        (affected_packed, "affected", 1, _build.INT32))
+    if s_shape != (c, w) or w * 32 != c or a_shape != (w,):
         raise ValueError(
             "closure_delete shapes must be r (C, C/32), s (C, C/32), "
-            f"affected (C/32,); got {tuple(r_packed.shape)}, "
-            f"{tuple(s_packed.shape)}, {tuple(affected_packed.shape)}")
+            f"affected (C/32,); got {(c, w)}, {tuple(s_shape)}, "
+            f"{tuple(a_shape)}")
     out = torch.empty_like(r_packed)
-    if out.numel():
+    if c:
         _build.launch("closure_delete", "repro_closure_delete", dev,
-                      r_packed, s_packed, affected_packed, out, c, w)
+                      r_packed.data_ptr(), s_packed.data_ptr(),
+                      affected_packed.data_ptr(), out.data_ptr(), c, w)
     return out
 
 
 def closure_delete_tiled(r_packed: torch.Tensor, s_packed: torch.Tensor,
                          affected_packed: torch.Tensor):
-    dev = r_packed.device
-    _build.check_operand(r_packed, "r", 2)
-    _build.check_operand(s_packed, "s", 2, dev)
-    _build.check_operand(affected_packed, "affected", 1, dev)
-    r, w = r_packed.shape
-    if tuple(s_packed.shape) != (r, w) or w * 32 != r \
-            or tuple(affected_packed.shape) != (w,):
+    dev, ((r, w), s_shape, a_shape) = _build.check_operands(
+        (r_packed, "r", 2, _build.INT32), (s_packed, "s", 2, _build.INT32),
+        (affected_packed, "affected", 1, _build.INT32))
+    if s_shape != (r, w) or w * 32 != r or a_shape != (w,):
         raise ValueError(
             "closure_delete_tiled shapes must be r (R, R/32), s (R, R/32), "
-            f"affected (R/32,); got {tuple(r_packed.shape)}, "
-            f"{tuple(s_packed.shape)}, {tuple(affected_packed.shape)}")
-    out = torch.empty_like(r_packed)
-    occ = torch.empty((r // 32, w), dtype=torch.int32, device=dev)
-    if out.numel():
+            f"affected (R/32,); got {(r, w)}, {tuple(s_shape)}, "
+            f"{tuple(a_shape)}")
+    out, occ = torch.empty_like(r_packed), r_packed.new_empty((w, w))
+    if r:
         _build.launch("closure_delete_tiled", "repro_closure_delete_tiled",
-                      dev, r_packed, s_packed, affected_packed, out, occ, r, w)
+                      dev, r_packed.data_ptr(), s_packed.data_ptr(),
+                      affected_packed.data_ptr(), out.data_ptr(),
+                      occ.data_ptr(), r, w)
     return out, occ

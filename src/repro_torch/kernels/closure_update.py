@@ -19,43 +19,37 @@ from repro_torch.kernels import _build
 
 def closure_update(closure_packed: torch.Tensor, mask_packed: torch.Tensor,
                    rows_packed: torch.Tensor) -> torch.Tensor:
-    dev = closure_packed.device
-    _build.check_operand(closure_packed, "closure", 2)
-    _build.check_operand(mask_packed, "mask", 2, dev)
-    _build.check_operand(rows_packed, "rows", 2, dev)
-    c, w = closure_packed.shape
-    c2, wb = mask_packed.shape
-    b, w2 = rows_packed.shape
+    dev, ((c, w), (c2, wb), (b, w2)) = _build.check_operands(
+        (closure_packed, "closure", 2, _build.INT32),
+        (mask_packed, "mask", 2, _build.INT32),
+        (rows_packed, "rows", 2, _build.INT32))
     if c2 != c or w2 != w or wb * 32 != b:
         raise ValueError(
             "closure_update shapes must be closure (C, W), mask (C, B/32), "
-            f"rows (B, W); got {tuple(closure_packed.shape)}, "
-            f"{tuple(mask_packed.shape)}, {tuple(rows_packed.shape)}")
+            f"rows (B, W); got {(c, w)}, {(c2, wb)}, {(b, w2)}")
     out = torch.empty_like(closure_packed)
-    if out.numel():
+    if c and w:
         _build.launch("closure_update", "repro_closure_update", dev,
-                      closure_packed, mask_packed, rows_packed, out, c, wb, w)
+                      closure_packed.data_ptr(), mask_packed.data_ptr(),
+                      rows_packed.data_ptr(), out.data_ptr(), c, wb, w)
     return out
 
 
 def closure_update_tiled(tiles_packed: torch.Tensor, mask_packed: torch.Tensor,
                          rows_packed: torch.Tensor):
-    dev = tiles_packed.device
-    _build.check_operand(tiles_packed, "tiles", 2)
-    _build.check_operand(mask_packed, "mask", 2, dev)
-    _build.check_operand(rows_packed, "rows", 2, dev)
-    r, w = tiles_packed.shape
-    r2, wb = mask_packed.shape
-    b, w2 = rows_packed.shape
+    dev, ((r, w), (r2, wb), (b, w2)) = _build.check_operands(
+        (tiles_packed, "tiles", 2, _build.INT32),
+        (mask_packed, "mask", 2, _build.INT32),
+        (rows_packed, "rows", 2, _build.INT32))
     if w * 32 != r or r2 != r or w2 != w or wb * 32 != b:
         raise ValueError(
             "closure_update_tiled shapes must be tiles (R, R/32), mask "
-            f"(R, B/32), rows (B, R/32); got {tuple(tiles_packed.shape)}, "
-            f"{tuple(mask_packed.shape)}, {tuple(rows_packed.shape)}")
-    out = torch.empty_like(tiles_packed)
-    occ = torch.empty((r // 32, w), dtype=torch.int32, device=dev)
-    if out.numel():
+            f"(R, B/32), rows (B, R/32); got {(r, w)}, {(r2, wb)}, "
+            f"{(b, w2)}")
+    out, occ = torch.empty_like(tiles_packed), tiles_packed.new_empty((w, w))
+    if r:
         _build.launch("closure_update_tiled", "repro_closure_update_tiled",
-                      dev, tiles_packed, mask_packed, rows_packed, out, occ,
+                      dev, tiles_packed.data_ptr(), mask_packed.data_ptr(),
+                      rows_packed.data_ptr(), out.data_ptr(), occ.data_ptr(),
                       r, wb, w)
     return out, occ

@@ -18,23 +18,23 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+TABLE_DTYPES, WEIGHT_DTYPES = tuple(DTYPES), (torch.float32,)
 
 
 def embbag(table: torch.Tensor, idx: torch.Tensor,
            weights: torch.Tensor) -> torch.Tensor:
-    _build.check_operand(table, "table", 2, dtypes=tuple(DTYPES))
-    dev = table.device
-    _build.check_operand(idx, "idx", 2, dev)
-    _build.check_operand(weights, "weights", 2, dev, (torch.float32,))
-    d, (b, k) = table.shape[1], idx.shape
-    if weights.shape != idx.shape or k < 1 or d < 1:
+    dev, ((_, d), (b, k), w_shape) = _build.check_operands(
+        (table, "table", 2, TABLE_DTYPES), (idx, "idx", 2, _build.INT32),
+        (weights, "weights", 2, WEIGHT_DTYPES))
+    if w_shape != (b, k) or k < 1 or d < 1:
         raise ValueError(
             "embbag shapes must be table (R, D), idx and weights (B, K) with "
             f"K >= 1 and D >= 1; got {tuple(table.shape)}, "
-            f"{tuple(idx.shape)}, {tuple(weights.shape)}")
+            f"{(b, k)}, {tuple(w_shape)}")
     out = torch.empty((b, d), dtype=table.dtype, device=dev)
     if b == 0:
         return out
-    _build.launch("embbag", "repro_embbag", dev, table, idx, weights, out,
-                  b, k, d, DTYPES[table.dtype])
+    _build.launch("embbag", "repro_embbag", dev, table.data_ptr(),
+                  idx.data_ptr(), weights.data_ptr(), out.data_ptr(), b, k, d,
+                  DTYPES[table.dtype])
     return out

@@ -24,33 +24,38 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_GRID_Y = 65535
 
 
-def _check(t: torch.Tensor, name: str, device: torch.device,
-           dtype: torch.dtype) -> None:
+def _check(t: torch.Tensor, name: str, index: int | None,
+           dtype: torch.dtype) -> int:
+    """Raise unless ``t`` is a (B, H, T, d) CUDA tensor of ``dtype`` on
+    card ``index`` (any card when None) with a contiguous last dimension
+    and 16-byte aligned strides and data; returns its card's index."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor for the kernel, got "
                          f"device {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    at = t.get_device()
+    if index is not None and at != index:
+        raise ValueError(f"{name} is on {t.device}, expected "
+                         f"{torch.device('cuda', index)}")
     if t.dtype != dtype:
         raise TypeError(f"{name} is {t.dtype}, expected {dtype} like q")
     if t.dim() != 4:
         raise ValueError(f"{name} must be (B, H, T, d), got "
                          f"{tuple(t.shape)}")
-    step = 16 // t.element_size()
-    if t.stride(3) != 1 or any(s % step for s in t.stride()[:3]) \
+    step, strides = 16 // t.element_size(), t.stride()
+    if strides[3] != 1 or any(s % step for s in strides[:3]) \
             or t.data_ptr() % 16:
         raise ValueError(f"{name} must have a contiguous last dimension and "
                          f"16-byte aligned strides and data, got strides "
-                         f"{t.stride()}")
+                         f"{strides}")
+    return at
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
-    dev = q.device
-    _check(q, "q", dev, q.dtype)
+    dev = _check(q, "q", None, q.dtype)
     _check(k, "k", dev, q.dtype)
     _check(v, "v", dev, q.dtype)
     if q.dtype not in DTYPES:
@@ -73,7 +78,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    _build.launch("flash_attention", "repro_flash_attention", dev, q, k, v,
-                  out, b, hq, hkv, tq, tk, d, DTYPES[q.dtype], int(causal),
+    _build.launch("flash_attention", "repro_flash_attention", dev,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                  hq, hkv, tq, tk, d, DTYPES[q.dtype], int(causal),
                   float(scale), strides)
     return out

@@ -29,7 +29,7 @@ def _resolve(impl: str, operand: torch.Tensor) -> str:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        return "cuda" if operand.device.type == "cuda" else "ref"
+        return "cuda" if operand.is_cuda else "ref"
     return impl
 
 

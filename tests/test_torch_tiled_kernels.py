@@ -13,6 +13,8 @@ with a reason when it is not; run them on the card with
 The machine with the card has no JAX, so the reference is imported inside
 the fixture that runs it.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -114,6 +116,10 @@ def test_tiled_dispatcher_routes_cpu_tensors_to_plain_versions():
 
 CARD_REGIONS = (32, 96, 1024, 4096)
 CARD_DENSITIES = (0.0, 0.01, 0.25, 1.0)
+# set-bit counts of an lhs row at the batch edges of the kernels' gathers
+# (`or_selected_rows_batched`: 8 loads in flight, 32 indices a pass), and
+# None for every bit of the row
+EDGE_COUNTS = (0, 1, 7, 8, 9, 31, 32, 33, None)
 
 
 def _need_card():
@@ -140,6 +146,31 @@ def _card_inputs(kind, r, density, band_live, dev):
     return [t(a, dev) for a in args]
 
 
+def _edge_rows(rng, n, width):
+    """(n, width/32) packed rows as a numpy uint32 array: row i holds
+    exactly EDGE_COUNTS[i % 9] set bits at random columns."""
+    counts = np.array([width if c is None else c for c in EDGE_COUNTS])
+    counts = counts[np.arange(n) % len(EDGE_COUNTS)]
+    order = np.argsort(rng.random((n, width)), axis=1)
+    bits = np.zeros((n, width), dtype=bool)
+    np.put_along_axis(bits, order, np.arange(width) < counts[:, None], 1)
+    return np.ascontiguousarray(np.packbits(
+        bits, axis=-1, bitorder="little")).view("<u4").astype(np.uint32)
+
+
+def _edge_inputs(kind, r, density, dev):
+    """Inputs whose lhs rows hold the EDGE_COUNTS: B5's r rows with every
+    row affected, B4's fold-mask rows at B = 128 and B = 1024."""
+    rng = np.random.default_rng(7 * r + int(density * 100))
+    if kind == "delete":
+        cases = [(_edge_rows(rng, r, r), packed(rng, (r, r), density),
+                  packed(rng, (r,), 1.0))]
+    else:
+        cases = [(packed(rng, (r, r), density), _edge_rows(rng, r, b),
+                  packed(rng, (b, r), density)) for b in (128, 1024)]
+    return [[t(a, dev) for a in args] for args in cases]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["update", "delete"])
 @pytest.mark.parametrize("r", CARD_REGIONS)
@@ -156,6 +187,29 @@ def test_tiled_kernel_matches_plain_on_card(kind, r, density, band_live):
     want_out, want_occ = plain(kind, args)
     assert torch.equal(out, want_out)
     assert torch.equal(occ, want_occ)
+    if band_live:
+        for edge in _edge_inputs(kind, r, density, dev):
+            (out, occ), want = plain(kind, edge, "cuda"), plain(kind, edge)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want[0]) and torch.equal(occ, want[1]), \
+                f"lhs rows of {EDGE_COUNTS} set bits, {edge[1].shape}"
+        # a call on another stream (the launch takes the current one),
+        # one back on the first, and one from a second thread
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got_side = plain(kind, args, "cuda")
+        got_main = plain(kind, args, "cuda")
+        from_thread = []
+        worker = threading.Thread(
+            target=lambda: from_thread.append(plain(kind, args, "cuda")))
+        worker.start()
+        worker.join()
+        torch.cuda.synchronize()
+        assert len(from_thread) == 1, "the launch from a thread raised"
+        for got in (got_side, got_main, from_thread[0]):
+            assert torch.equal(got[0], want_out)
+            assert torch.equal(got[1], want_occ)
 
 
 @pytest.mark.cuda
@@ -166,6 +220,26 @@ def test_tiled_kernel_wrappers_reject_bad_operands_on_card():
         ops.closure_update_tiled(tiles.t(), mask, rows)
     with pytest.raises(ValueError, match="shapes"):
         ops.closure_update_tiled(tiles[:64], mask, rows)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.closure_update_tiled(tiles, mask[:32], rows)
+    with pytest.raises(TypeError, match="int32"):
+        ops.closure_update_tiled(tiles, mask, rows.to(torch.int64))
+    with pytest.raises(ValueError, match="dimensions"):
+        ops.closure_update_tiled(tiles, mask.reshape(-1), rows)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.closure_update_tiled(tiles, mask.cpu(), rows)
     r, s, aff = _card_inputs("delete", 96, 0.25, True, dev)
     with pytest.raises(ValueError, match="shapes"):
         ops.closure_delete_tiled(r, s, aff[:2])
+    with pytest.raises(ValueError, match="shapes"):
+        ops.closure_delete_tiled(r, s[:64], aff)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.closure_delete_tiled(r, s.t(), aff)
+    with pytest.raises(TypeError, match="int32"):
+        ops.closure_delete_tiled(r.to(torch.int64), s, aff)
+    with pytest.raises(ValueError, match="dimensions"):
+        ops.closure_delete_tiled(r, s, aff[None])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.closure_delete_tiled(r, s, aff.cpu(), impl="cuda")
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        ops.closure_delete_tiled(r, s.cpu().numpy(), aff)
