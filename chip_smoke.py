@@ -7,12 +7,20 @@ non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
   2. build      — nvcc builds kernels B1-B7 from src/repro_torch/csrc;
                   registers and shared memory per kernel (-Xptxas -v);
-                  B7's bf16 and f16 instantiations must hold wgmma
-                  (HGMMA) and no mma.sync (HMMA) in their SASS
-                  (cuobjdump, where the toolkit has it).
+                  B1's and B3's main kernels must not spill; B7's bf16
+                  and f16 instantiations must hold wgmma (HGMMA) and no
+                  mma.sync (HMMA), B1's and B3's main kernels integer
+                  wgmma (IGMMA) in their SASS (cuobjdump, where the
+                  toolkit has it).
   3. kernels    — every kernel bit-identical to its plain torch version
                   at the shapes and densities of tests/test_kernels.py
-                  (B1-B3) and over windows R in {32, 96, 1024, 4096},
+                  (B1-B3); B1 and B3 also over densities 0, 1, 5, 25,
+                  50 and 100%, block-mixed operands (alternate 128-row
+                  blocks 1% and full: both paths in one launch), ragged
+                  M, K and N, lhs is rhs, the frontier hop, B3 with no,
+                  a quarter of and every row affected, each case as the
+                  main path calls it and with every block forced down
+                  each path; and over windows R in {32, 96, 1024, 4096},
                   densities 0 / 1% / 25% / 100%, all-live and no-live
                   bands (B4, B5, occupancy included), over lhs rows
                   with exactly 0, 1, 7, 8, 9, 31, 32, 33 and all set
@@ -27,7 +35,15 @@ non-zero:
                   could take (bound); kernel_ms is per call (CUDA
                   events), device_ms the kernel alone (torch.profiler),
                   host_ms the wall time per call of calls issued without
-                  a sync.  Then B5's device time at R = 1024 with one
+                  a sync; each B1/B3 line gives the share of its 128-row
+                  blocks above the dense threshold, from the operands.
+                  B1's "crossover" line times its two paths, every block
+                  forced, on the C=16384 squaring at 1-50% density (the
+                  measurement behind the threshold) and on the frontier
+                  hop; then B1 squares the closure of a seeded 1%-dense
+                  upper-triangular DAG (C=16384, ~47% dense) and B3 runs
+                  with every row of it affected, each timed against the
+                  fp16 matmul.  Then B5's device time at R = 1024 with one
                   row, one band and every row affected (10 bits a row),
                   the host cost of the ways to allocate B4/B5's two
                   outputs, turn for turn, and B5's host time a call step
@@ -239,6 +255,9 @@ def phase_build():
             if t:   # one instantiation per (type, load width)
                 kernel = (f"embbag<{'bf16' if t.group(1) == '1' else 'f32'}"
                           f", vec={t.group(2)}>")
+            t = re.search(r"(bitmm|closure_delete)_work_kernel", m.group(1))
+            if t:   # B1's and B3's first launch
+                kernel = f"{t.group(1)} work"
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             smem = re.search(r"(\d+) bytes smem", line)
@@ -250,34 +269,58 @@ def phase_build():
         if "spill" in line and kernel:
             PTXAS.setdefault(kernel, {})["spills"] = line.strip()
             say("build", f"{kernel}: {line.strip()}")
-    b7_sass(lib)
+        if "wgmma" in line.lower() and "serializ" in line.lower():
+            say("build", f"ptxas: {line.strip()}")
+    b1_b3_spills()
+    check_sass(lib)
 
 
-def b7_sass(lib) -> None:
+def b1_b3_spills() -> None:
+    """B1's and B3's main kernels (dense path: 128 int32 accumulators a
+    consumer thread) must not spill."""
+    for kernel in ("bitmm", "closure_delete"):
+        line = PTXAS.get(kernel, {}).get("spills", "")
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        check(found is not None and found.groups() == ("0", "0"),
+              f"{kernel} must not spill registers: ptxas says {line!r}")
+    say("build", "B1's and B3's main kernels: no spills")
+
+
+def check_sass(lib) -> None:
     """B7's bf16 and f16 instantiations must compute their products with
-    wgmma (HGMMA in the SASS) and hold no mma.sync (HMMA)."""
+    wgmma (HGMMA in the SASS) and hold no mma.sync (HMMA); B1's and B3's
+    main kernels (their dense path) must hold integer wgmma (IGMMA)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
-        say("build", f"{tool} not found: B7's SASS not checked")
+        say("build", f"{tool} not found: the SASS is not checked")
         return
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=600).stdout
-    found = {}
+    found, integer = {}, {}
     for body in re.split(r"\n\s+Function : ", sass)[1:]:
-        t = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E",
-                      body.split("\n", 1)[0])
+        name = body.split("\n", 1)[0]
+        t = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", name)
         if t:
             found[f"{t.group(1)}, d={t.group(2)}"] = (
                 len(re.findall(r"\bHGMMA\b", body)),
                 len(re.findall(r"\bHMMA\b", body)))
+        t = re.search(r"(bitmm_kernel|closure_delete_kernel)", name)
+        if t:
+            integer[t.group(1)] = len(re.findall(r"\bIGMMA\b", body))
     check(len(found) == 8 and all(g > 0 and h == 0
                                   for g, h in found.values()),
           f"B7's 16-bit instantiations must use wgmma and no mma.sync: "
           f"(HGMMA, HMMA) per instantiation {found}")
     say("build", "B7's 16-bit instantiations compute with wgmma: (HGMMA, "
         f"HMMA) in the SASS of each {found}")
+    check(len(integer) == 2 and all(n > 0 for n in integer.values()),
+          f"B1's and B3's main kernels must use integer wgmma: IGMMA per "
+          f"kernel {integer}")
+    say("build", f"B1's and B3's dense path computes with integer wgmma: "
+        f"IGMMA in the SASS of each {integer}")
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -317,18 +360,32 @@ def profiled(fn, reps: int):
     return prof.key_averages()
 
 
-def kernel_device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds of the CUDA kernel named ``kernel`` per
-    launch over ``reps`` calls of ``fn``, from `torch.profiler`: the
-    kernel alone, without the host time of its wrapper (which sets the
-    per-call time of a kernel shorter than its launch)."""
+def kernel_device_parts(fn, reps: int, kernel: str):
+    """Mean device milliseconds per launch of the CUDA kernel named
+    ``kernel`` and of its first launch (``kernel``_work_kernel: B1 and B3
+    count each row block's work before the product; 0.0 for the others)
+    over ``reps`` calls of ``fn``, from `torch.profiler`: the kernels
+    alone, without the host time of the wrapper (which sets the per-call
+    time of a kernel shorter than its launch)."""
     from repro_torch.launch.profile_ticks import _device_us
 
-    events = [e for e in profiled(fn, reps) if f"{kernel}_kernel" in e.key]
-    # the mean over the launches the profiler recorded (it may drop one)
-    launches = sum(e.count for e in events)
-    check(launches > 0, f"the profiler saw no launch of {kernel}")
-    return sum(_device_us(e) for e in events) / 1e3 / launches
+    keys = profiled(fn, reps)
+    parts = []
+    for tag in ("_kernel", "_work_kernel"):
+        events = [e for e in keys if f"{kernel}{tag}" in e.key]
+        # the mean over the launches the profiler recorded (it may drop one)
+        launches = sum(e.count for e in events)
+        check(launches > 0 or tag != "_kernel",
+              f"the profiler saw no launch of {kernel}")
+        parts.append(sum(_device_us(e) for e in events) / 1e3
+                     / max(launches, 1))
+    return tuple(parts)
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Device milliseconds of a call of ``fn``: its kernel's launch plus,
+    for B1 and B3, their first launch (`kernel_device_parts`)."""
+    return sum(kernel_device_parts(fn, reps, kernel))
 
 
 def device_ms_per_call(fn, reps: int) -> float:
@@ -472,6 +529,159 @@ def launch_path_steps(r_packed, s_packed, aff, reps: int = 2000):
     return {k: host_ms(f, reps) * 1e3 for k, f in steps.items()}
 
 
+def dense_share(lhs, affected=None) -> float:
+    """The share of B1's / B3's 128-row blocks above the compiled
+    threshold, from the operands on the host side: each block's set lhs
+    bits (B3: of its affected rows) against kDensePerMille of its 128 x K
+    cells, as the kernels' first launch counts them."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels import bitmm
+
+    m, wk = lhs.shape
+    bits = bitset.popcount(lhs).to(torch.int64)   # per row
+    if affected is not None:
+        bits = bits * bitset.unpack_bits(affected)[:m].to(torch.int64)
+    blocks = (m + 127) // 128
+    work = torch.zeros(blocks * 128, dtype=torch.int64, device=lhs.device)
+    work[:m] = bits
+    work = work.view(blocks, 128).sum(1).cpu().numpy()
+    dense = work * 1000 > bitmm.dense_per_mille() * 128 * 32 * wk
+    return float(dense.mean())
+
+
+def forced_works(m: int, device):
+    """Work arrays that send every 128-row block down one path: all
+    sparse (0) and all dense (the int32 maximum)."""
+    blocks = (m + 127) // 128
+    return (torch.zeros(blocks, dtype=torch.int32, device=device),
+            torch.full((blocks,), 2 ** 31 - 1, dtype=torch.int32,
+                       device=device))
+
+
+def block_mixed(m: int, k: int, gen, sparse=0.01):
+    """(m, k/32) packed rows whose 128-row blocks alternate between 1%
+    dense and full, starting sparse."""
+    x = packed((m, k), sparse, gen)
+    for b0 in range(128, m, 256):
+        x[b0:b0 + 128] = -1
+    return x
+
+
+def b1_b3_cases(gen, err) -> int:
+    """B1 and B3 bit for bit against their plain versions, each case
+    three ways: the call as the main path makes it (each block on the
+    path its count picks) and the main launch with every block forced
+    sparse or dense.  Densities 0, 1,
+    5, 25, 50 and 100%, block-mixed operands (alternate 128-row blocks
+    1% and full), ragged M, K and N, lhs is rhs, the frontier hop and the
+    tiled rebuild's window, B3 with no, a quarter of and every row
+    affected.  Returns the number of cases; updates err."""
+    from repro_torch.kernels import bitmm, closure_delete, ops
+
+    n_cases = 0
+
+    def b1(lhs, rhs):
+        nonlocal n_cases
+        want = ops.bitmm_packed(lhs, rhs, impl="ref")
+        sparse, dense = forced_works(lhs.shape[0], lhs.device)
+        for got in (ops.bitmm_packed(lhs, rhs, impl="cuda"),
+                    bitmm.bitmm_paths(lhs, rhs, sparse),
+                    bitmm.bitmm_paths(lhs, rhs, dense)):
+            err["bitmm"] = max(err["bitmm"], mismatch(got, want))
+        n_cases += 1
+
+    def b3(r, s, aff):
+        nonlocal n_cases
+        want = ops.closure_delete(r, s, aff, impl="ref")
+        sparse, dense = forced_works(r.shape[0], r.device)
+        for got in (ops.closure_delete(r, s, aff, impl="cuda"),
+                    closure_delete.closure_delete_paths(r, s, aff, sparse),
+                    closure_delete.closure_delete_paths(r, s, aff, dense)):
+            err["closure_delete"] = max(err["closure_delete"],
+                                        mismatch(got, want))
+        n_cases += 1
+
+    densities = (0.0, 0.01, 0.05, 0.25, 0.5, 1.0)
+    # ragged M, K and N: capacities are multiples of 32, not of 128 or 256
+    for m, k, n in [(512, 2048, 2048), (200, 160, 288), (33, 96, 160),
+                    (1000, 1056, 800)]:
+        for d in densities:
+            b1(packed((m, k), d, gen), packed((k, n), d, gen))
+        b1(block_mixed(m, k, gen), packed((k, n), 0.25, gen))
+    for c in (1024, 2080):          # lhs is rhs; the tiled rebuild's window
+        for d in densities:
+            x = packed((c, c), d, gen)
+            b1(x, x)
+        x = block_mixed(c, c, gen)
+        b1(x, x)
+    for d in (0.01, 0.5):           # the frontier hop
+        b1(packed((B_FULL, C_FULL), d, gen), packed((C_FULL, C_FULL), d, gen))
+    for c in (128, 320, 1024, 2080):
+        for d in (0.01, 0.25, 1.0):
+            for af in (0.0, 0.25, 1.0):
+                b3(packed((c, c), d, gen), packed((c, c), d, gen),
+                   packed((c,), af, gen))
+        b3(block_mixed(c, c, gen), packed((c, c), 0.05, gen),
+           packed((c,), 0.5, gen))
+    return n_cases
+
+
+def crossover(gen) -> None:
+    """B1's two paths at one shape, the C=16384 squaring (lhs is rhs) at
+    densities 1% .. 50%, and the frontier hop at 1%: the main launch with
+    every block forced sparse or dense, ms a call (CUDA events); the two
+    agree bit for bit.  The threshold
+    (kDensePerMille) is set from where the sparse time crosses the dense
+    one."""
+    from repro_torch.kernels import bitmm
+
+    c = C_FULL
+    sparse, dense = forced_works(c, "cuda")
+    rows = []
+    for d in (0.01, 0.02, 0.05, 0.1, 0.25, 0.5):
+        x = packed((c, c), d, gen)
+        outs, ms = [], {}
+        for label, fn in (("sparse", lambda: bitmm.bitmm_paths(x, x, sparse)),
+                          ("dense", lambda: bitmm.bitmm_paths(x, x, dense))):
+            outs.append(fn())
+            ms[label] = cuda_ms(fn, 2 if d >= 0.1 else 5)
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"B1's paths disagree at the {d:.0%} squaring")
+        rows.append((d, ms))
+        del x, outs
+    say("kernels", f"bitmm crossover, C={c} squaring (lhs is rhs), ms a "
+        "main launch by path: " + "; ".join(
+            f"{d:.0%} " + " ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            for d, ms in rows))
+    sparse_b = forced_works(B_FULL, "cuda")[0]
+    dense_b = forced_works(B_FULL, "cuda")[1]
+    front, rhs = packed((B_FULL, c), 0.01, gen), packed((c, c), 0.01, gen)
+    hop = {label: cuda_ms(fn, 20) for label, fn in (
+        ("sparse", lambda: bitmm.bitmm_paths(front, rhs, sparse_b)),
+        ("dense", lambda: bitmm.bitmm_paths(front, rhs, dense_b)))}
+    say("kernels", f"bitmm frontier hop ({B_FULL}, {c // 32}) x ({c}, "
+        f"{c // 32}), 1%, ms a main launch by path: " + " ".join(
+            f"{k} {v:.4f}" for k, v in hop.items())
+        + f"; compiled threshold {bitmm.dense_per_mille()} per mille")
+
+
+def dense_closure(gen):
+    """The closure of a seeded 1%-dense random upper-triangular DAG at
+    C=16384, built on the card by repeated squaring (B1)."""
+    from repro_torch.core import bitset, reachability
+
+    adj = torch.rand((C_FULL, C_FULL), generator=gen, device="cuda") < 0.01
+    adj = bitset.pack_bits(torch.triu(adj, diagonal=1))
+    t0 = time.perf_counter()
+    r, n = reachability.transitive_closure(adj, with_stats=True)
+    torch.cuda.synchronize()
+    density = popcount_total(r) / C_FULL ** 2
+    say("kernels", f"dense closure: C={C_FULL}, 1%-dense upper-triangular "
+        f"DAG, {n} squarings, {density:.1%} dense, "
+        f"{time.perf_counter() - t0:.2f}s")
+    return r, density
+
+
 def phase_kernels():
     """Bit-identity sweeps plus timings; returns {kernel: record}."""
     from repro_torch.kernels import ops
@@ -503,6 +713,8 @@ def phase_kernels():
                 ops.closure_delete(*args, impl="cuda"),
                 ops.closure_delete(*args, impl="ref")))
             n_cases += 1
+    n_b1_b3 = b1_b3_cases(gen, err)
+    n_cases += n_b1_b3
     for r in (32, 96, 1024, 4096):
         for d in (0.0, 0.01, 0.25, 1.0):
             for band_live in (True, False):
@@ -550,8 +762,10 @@ def phase_kernels():
         n_cases += 1
     torch.cuda.synchronize()
     say("kernels", f"{n_cases} cases on the card (test_kernels.py shapes; "
-        f"tiled windows 32-4096, lhs rows of 0-33 and all set bits), max "
-        f"abs err per kernel {err}")
+        f"{n_b1_b3} of B1 and B3 over densities 0-100%, block-mixed, "
+        f"ragged, lhs is rhs, the frontier hop, each by both paths; tiled "
+        f"windows 32-4096, lhs rows of 0-33 and all set bits), max abs err "
+        f"per kernel {err}")
     check(not any(err.values()), f"kernel disagrees with its plain "
           f"version at the test shapes: {err}")
 
@@ -586,7 +800,8 @@ def phase_kernels():
         rec = {"ms": float(np.median(k_turns)),
                "plain_ms": cuda_ms(plain_fn, plain_reps),
                "library_ms": float(np.median(l_turns))}
-        device = kernel_device_ms(kernel_fn, reps, name)
+        main_ms, work_ms = kernel_device_parts(kernel_fn, reps, name)
+        device = main_ms + work_ms
         host, lib_host = host_ms(kernel_fn, reps), host_ms(library, lib_reps)
         del library
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n)
@@ -598,7 +813,8 @@ def phase_kernels():
             f"{' '.join(f'{x:.4f}' for x in l_turns)}); kernel / library "
             f"{rec['ms'] / rec['library_ms']:.3f}, the kernel faster in "
             f"{won} of {len(k_turns)} adjacent pairs; device_ms={device:.4f} "
-            f"alone; host_ms={host:.4f} a call (library {lib_host:.4f}); "
+            f"alone{f' (first launch {work_ms:.4f})' if work_ms else ''}; "
+            f"host_ms={host:.4f} a call (library {lib_host:.4f}); "
             f"plain_ms={rec['plain_ms']:.3f} bound_ms={rec['bound_ms']:.4g} "
             f"({rec['bound_by']})")
         return rec
@@ -606,16 +822,37 @@ def phase_kernels():
     # B1: a closure squaring (C x C) and a frontier hop (B rows), 1% dense
     lhs, rhs = packed((c, c), 0.01, gen), packed((c, c), 0.01, gen)
     records["bitmm"] = measure(
-        "bitmm", f"squaring ({c}, {w}) x ({c}, {w}), 1% dense",
+        "bitmm", f"squaring ({c}, {w}) x ({c}, {w}), 1% dense, "
+        f"{dense_share(lhs):.0%} of row blocks dense",
         lambda: ops.bitmm_packed(lhs, rhs, impl="cuda"),
         lambda: ops.bitmm_packed(lhs, rhs, impl="ref"), (lhs, rhs),
         3 * c * w * 4, 2 * popcount_total(lhs) * c)
     front = packed((B_FULL, c), 0.01, gen)
-    measure("bitmm", f"frontier hop ({B_FULL}, {w}) x ({c}, {w}), 1% dense",
+    measure("bitmm", f"frontier hop ({B_FULL}, {w}) x ({c}, {w}), 1% dense, "
+            f"{dense_share(front):.0%} of row blocks dense",
             lambda: ops.bitmm_packed(front, rhs, impl="cuda"),
             lambda: ops.bitmm_packed(front, rhs, impl="ref"), (front, rhs),
             (2 * B_FULL * w + c * w) * 4, 2 * popcount_total(front) * c)
     del front
+    crossover(gen)
+    # B1 squaring a dense closure, B3 with every row of it affected
+    closure, density = dense_closure(gen)
+    measure("bitmm", f"squaring the closure ({c}, {w}), {density:.0%} "
+            f"dense, {dense_share(closure):.0%} of row blocks dense",
+            lambda: ops.bitmm_packed(closure, closure, impl="cuda"),
+            lambda: ops.bitmm_packed(closure, closure, impl="ref"),
+            (closure, closure), 2 * c * w * 4,
+            2 * popcount_total(closure) * c, reps=3, plain_reps=1,
+            lib_reps=3)
+    every = torch.full((w,), -1, dtype=torch.int32, device="cuda")
+    measure("closure_delete", f"C={c}, every row of the closure affected, "
+            f"{dense_share(closure, every):.0%} of row blocks dense",
+            lambda: ops.closure_delete(closure, closure, every, impl="cuda"),
+            lambda: ops.closure_delete(closure, closure, every, impl="ref"),
+            (closure, closure), (2 * c * w + w) * 4,
+            2 * popcount_total(closure) * c, reps=3, plain_reps=1,
+            lib_reps=3)
+    del closure, every
     # B2: the rank-B fold at C=16384, B=1024
     mask = packed((c, B_FULL), 0.01, gen)
     rows = packed((B_FULL, c), 0.01, gen)
@@ -632,7 +869,8 @@ def phase_kernels():
         aff = packed((c,), frac, gen)
         aff_rows = bitset.unpack_bits(aff)
         rec = measure(
-            "closure_delete", f"C={c}, {frac:.0%} rows affected, 1% dense",
+            "closure_delete", f"C={c}, {frac:.0%} rows affected, 1% dense, "
+            f"{dense_share(lhs, aff):.0%} of row blocks dense",
             lambda: ops.closure_delete(lhs, rhs, aff, impl="cuda"),
             lambda: ops.closure_delete(lhs, rhs, aff, impl="ref"),
             (lhs, rhs), (3 * c * w + w) * 4,

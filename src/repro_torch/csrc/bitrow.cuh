@@ -1,6 +1,7 @@
-// Shared warp routines of the packed boolean-product kernels: bitmm,
-// closure_update and closure_delete use or_selected_rows; their tiled
-// variants use or_selected_rows_batched (below), which computes the same.
+// Shared warp routines of the packed boolean-product kernels:
+// closure_update uses or_selected_rows; the tiled kernels use
+// or_selected_rows_batched (below), which computes the same.  bitmm and
+// closure_delete have their own two paths (bitgemm.cuh).
 //
 // Layout: LSB-first 32-bit words; column j of a row lives in word j >> 5,
 // bit j & 31.  One warp owns one output row m and 32 consecutive output

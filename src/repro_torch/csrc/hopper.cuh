@@ -167,6 +167,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
 template <typename T>
 struct WgmmaType;
 template <>
@@ -309,6 +315,60 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
   } else {
     REPRO_WGMMA_RS_N128("f16");
   }
+}
+
+// ------------------------------------------------------- integer wgmma
+
+#define REPRO_ACC8_U32(d, i)                                               \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),              \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x 256, int32) += a . b: a is 64 x 32 unsigned bytes in registers
+// (each warp's 16 rows in the m16n8k32 A layout: register 0 holds bytes
+// 4q..4q+3 of row g, 1 the same of row g + 8, 2 and 3 bytes 16 + 4q..
+// of rows g and g + 8, for lane 4g + q), b 256 x 32 unsigned bytes in
+// shared memory, K-major, at descriptor b moved by kOffB bytes.  Integer
+// operands must be K-major (no transpose); scale_d 0 overwrites d.
+template <int kOffB>
+__device__ __forceinline__ void wgmma_rs_u8_n256(uint32_t (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %133, 0;\nadd.s64 db, %132, %134;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, db, p;\n}\n"
+      : REPRO_ACC8_U32(d, 0),
+        REPRO_ACC8_U32(d, 8),
+        REPRO_ACC8_U32(d, 16),
+        REPRO_ACC8_U32(d, 24),
+        REPRO_ACC8_U32(d, 32),
+        REPRO_ACC8_U32(d, 40),
+        REPRO_ACC8_U32(d, 48),
+        REPRO_ACC8_U32(d, 56),
+        REPRO_ACC8_U32(d, 64),
+        REPRO_ACC8_U32(d, 72),
+        REPRO_ACC8_U32(d, 80),
+        REPRO_ACC8_U32(d, 88),
+        REPRO_ACC8_U32(d, 96),
+        REPRO_ACC8_U32(d, 104),
+        REPRO_ACC8_U32(d, 112),
+        REPRO_ACC8_U32(d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(kOffB >> 4));
 }
 
 }  // namespace hopper

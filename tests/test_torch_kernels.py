@@ -150,21 +150,57 @@ def _need_card():
     return torch.device("cuda")
 
 
+def block_mixed(rng, m, k):
+    """Packed (m, k/32) rows whose 128-row blocks alternate between 1%
+    dense and full: B1/B3 take both paths in one launch."""
+    a = packed(rng, (m, k), 0.01)
+    for b0 in range(128, m, 256):
+        a[b0:b0 + 128] = 0xFFFFFFFF
+    return a
+
+
+def forced_paths(m, dev):
+    """Work arrays sending every 128-row block of B1/B3's main launch down
+    the sparse (0) or the dense (int32 max) path."""
+    blocks = (m + 127) // 128
+    return (torch.zeros(blocks, dtype=torch.int32, device=dev),
+            torch.full((blocks,), 2 ** 31 - 1, dtype=torch.int32,
+                       device=dev))
+
+
 # The card cases are parametrized over shapes; each loops over its
 # densities inside and names the failing one.  Their count on the CPU,
 # where they only skip, is held down: see ROADMAP "How this round works".
+# B1 and B3 are also checked with every block forced down each of their
+# two paths, on block-mixed operands (both paths in one launch) and, for
+# square shapes, with lhs and rhs the same tensor.
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", BITMM_SHAPES + [(33, 96, 160)])
 def test_bitmm_kernel_matches_plain_on_card(m, k, n):
+    from repro_torch.kernels import bitmm
+
     dev = _need_card()
-    for density in (0.0, 0.02, 0.5):
-        lhs, rhs = (t(a, dev) for a in bitmm_inputs(m, k, n, density))
-        before = ops.LAUNCHES["bitmm"]
-        got = ops.bitmm_packed(lhs, rhs, impl="cuda")
-        torch.cuda.synchronize()
-        assert ops.LAUNCHES["bitmm"] == before + 1, f"density {density}"
-        assert torch.equal(got, ops.bitmm_packed(lhs, rhs, impl="ref")), \
-            f"density {density}"
+    sparse, dense = forced_paths(m, dev)
+    cases = [(f"density {d}", bitmm_inputs(m, k, n, d))
+             for d in (0.0, 0.01, 0.02, 0.05, 0.25, 0.5, 1.0)]
+    rng = np.random.default_rng(m + k + n)
+    cases.append(("block-mixed", (block_mixed(rng, m, k),
+                                  packed(rng, (k, n), 0.25))))
+    for label, (a, b) in cases:
+        lhs, rhs = t(a, dev), t(b, dev)
+        operands = [(lhs, rhs)]
+        if m == k == n:
+            operands.append((lhs, lhs))   # lhs is rhs
+        for x, y in operands:
+            want = ops.bitmm_packed(x, y, impl="ref")
+            before = ops.LAUNCHES["bitmm"]
+            got = ops.bitmm_packed(x, y, impl="cuda")
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["bitmm"] == before + 1, label
+            assert torch.equal(got, want), label
+            for path, work in (("sparse", sparse), ("dense", dense)):
+                assert torch.equal(bitmm.bitmm_paths(x, y, work), want), \
+                    f"{label}, every block {path}"
 
 
 @pytest.mark.cuda
@@ -182,13 +218,31 @@ def test_closure_update_kernel_matches_plain_on_card(c, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", DELETE_CAPS)
 def test_closure_delete_kernel_matches_plain_on_card(c):
+    from repro_torch.kernels import closure_delete
+
     dev = _need_card()
-    for aff_frac in (0.0, 0.25, 1.0):
-        args = [t(a, dev) for a in delete_inputs(c, aff_frac)]
+    sparse, dense = forced_paths(c, dev)
+    rng = np.random.default_rng(c)
+    cases = [(f"affected fraction {f}", delete_inputs(c, f))
+             for f in (0.0, 0.25, 1.0)]
+    for d in (0.01, 0.25, 1.0):
+        for f in (0.0, 0.25, 1.0):
+            cases.append((f"density {d}, affected fraction {f}",
+                          (packed(rng, (c, c), d), packed(rng, (c, c), d),
+                           packed(rng, (c,), f))))
+    cases.append(("block-mixed", (block_mixed(rng, c, c),
+                                  packed(rng, (c, c), 0.05),
+                                  packed(rng, (c,), 0.5))))
+    for label, arrays in cases:
+        args = [t(a, dev) for a in arrays]
+        want = ops.closure_delete(*args, impl="ref")
         got = ops.closure_delete(*args, impl="cuda")
         torch.cuda.synchronize()
-        assert torch.equal(got, ops.closure_delete(*args, impl="ref")), \
-            f"affected fraction {aff_frac}"
+        assert torch.equal(got, want), label
+        for path, work in (("sparse", sparse), ("dense", dense)):
+            assert torch.equal(
+                closure_delete.closure_delete_paths(*args, work), want), \
+                f"{label}, every block {path}"
 
 
 @pytest.mark.cuda
