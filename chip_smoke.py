@@ -7,9 +7,9 @@ non-zero:
   1. device     — the card's name and power limit (no card: exit 2).
   2. build      — nvcc builds kernels B1-B7 from src/repro_torch/csrc;
                   registers and shared memory per kernel (-Xptxas -v);
-                  B1's and B3's main kernels must not spill; B7's bf16
+                  B1-B3's main kernels must not spill; B7's bf16
                   and f16 instantiations must hold wgmma (HGMMA) and no
-                  mma.sync (HMMA), B1's and B3's main kernels integer
+                  mma.sync (HMMA), B1-B3's main kernels integer
                   wgmma (IGMMA) in their SASS (cuobjdump, where the
                   toolkit has it).
   3. kernels    — every kernel bit-identical to its plain torch version
@@ -18,7 +18,11 @@ non-zero:
                   50 and 100%, block-mixed operands (alternate 128-row
                   blocks 1% and full: both paths in one launch), ragged
                   M, K and N, lhs is rhs, the frontier hop, B3 with no,
-                  a quarter of and every row affected, each case as the
+                  a quarter of and every row affected; B2 over mask
+                  densities 0-100% across the threshold, block-mixed
+                  masks, C = 320 and 1056 at B = 32, 96 and 1024, an
+                  all-ones closure and the main path's shape at 1% and
+                  50%; each case as the
                   main path calls it and with every block forced down
                   each path; and over windows R in {32, 96, 1024, 4096},
                   densities 0 / 1% / 25% / 100%, all-live and no-live
@@ -35,12 +39,19 @@ non-zero:
                   could take (bound); kernel_ms is per call (CUDA
                   events), device_ms the kernel alone (torch.profiler),
                   host_ms the wall time per call of calls issued without
-                  a sync; each B1/B3 line gives the share of its 128-row
+                  a sync; each B1-B3 line gives the share of its 128-row
                   blocks above the dense threshold, from the operands.
                   B1's "crossover" line times its two paths, every block
                   forced, on the C=16384 squaring at 1-50% density (the
                   measurement behind the threshold) and on the frontier
-                  hop; then B1 squares the closure of a seeded 1%-dense
+                  hop; B2 is timed with a 1% and a 50% dense mask, its
+                  crossover line times both paths on the C=16384,
+                  B=1024 fold at mask densities 1-50%, and it is timed
+                  on the last fold of the insheavy and of the delheavy
+                  stream (captured through the engine's
+                  closure_update_impl hook; mask bits and dense-block
+                  share printed); then B1
+                  squares the closure of a seeded 1%-dense
                   upper-triangular DAG (C=16384, ~47% dense) and B3 runs
                   with every row of it affected, each timed against the
                   fp16 matmul.  Then B5's device time at R = 1024 with one
@@ -66,11 +77,14 @@ non-zero:
                   of tests/test_kernels.py in f32 and bf16 with 0-weight
                   padding, at ragged widths, at the xDeepFM main path's
                   (R=33,001,472, D=1, B=512, K=39, f32, unit weights) and
-                  at kernel_bench's (R=1,000,000, D=64, B=4096, K=4), every
-                  element within its rounding bound (EMB_TOL: K 2^-23
+                  at kernel_bench's (R=1,000,000, D=64, B=4096, K=4), and
+                  over K in {1, 2, 31, 32, 33, 39, 64, 100}, D in {1, 2,
+                  3, 4, 8} and B in {1, 7, 512} (both of its paths), every
+                  element within its rounding bound (K 2^-23
                   sum_k |w_k t_k|, plus 2^-7 |want| in bf16); the bound
                   must reject the main shape's output with one k term
-                  left out; its library yardstick is one
+                  left out; the two timed shapes print the path they
+                  took; its library yardstick is one
                   F.embedding_bag(mode="sum") call.
   4. parity     — on the card (kernels) and on the CPU (plain versions),
                   compared after every call (ok bits, adjacency, closure
@@ -170,6 +184,9 @@ REC_STEPS = 20                  # timed forward calls at serve_p99
 TURNS = 5                       # rounds of turns timing a bit kernel
 BIT_KERNELS = ("bitmm", "closure_update", "closure_delete",
                "closure_update_tiled", "closure_delete_tiled")
+# the kernels on csrc/bitgemm.cuh's two paths (a count launch, then gather
+# lists or int8 wgmma a 128-row block)
+BITGEMM_KERNELS = ("bitmm", "closure_update", "closure_delete")
 
 # -Xptxas -v per kernel instantiation (phase 2): registers, static shared
 # memory, spills
@@ -251,12 +268,15 @@ def phase_build():
                           m.group(1))
             if t:
                 kernel = f"flash_attention<float, d={t.group(1)}>"
-            t = re.search(r"embbag_kernelILb([01])ELi(\d+)E", m.group(1))
-            if t:   # one instantiation per (type, load width)
-                kernel = (f"embbag<{'bf16' if t.group(1) == '1' else 'f32'}"
-                          f", vec={t.group(2)}>")
-            t = re.search(r"(bitmm|closure_delete)_work_kernel", m.group(1))
-            if t:   # B1's and B3's first launch
+            t = re.search(r"embbag_kernel(_ksplit)?ILb([01])ELi(\d+)E",
+                          m.group(1))
+            if t:   # one instantiation per (path, type, load width)
+                kernel = (f"embbag{' k split' if t.group(1) else ''}<"
+                          f"{'bf16' if t.group(2) == '1' else 'f32'}, "
+                          f"vec={t.group(3)}>")
+            t = re.search(r"(bitmm|closure_update|closure_delete)_work_kernel",
+                          m.group(1))
+            if t:   # B1-B3's first launch
                 kernel = f"{t.group(1)} work"
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
@@ -271,26 +291,26 @@ def phase_build():
             say("build", f"{kernel}: {line.strip()}")
         if "wgmma" in line.lower() and "serializ" in line.lower():
             say("build", f"ptxas: {line.strip()}")
-    b1_b3_spills()
+    bitgemm_spills()
     check_sass(lib)
 
 
-def b1_b3_spills() -> None:
-    """B1's and B3's main kernels (dense path: 128 int32 accumulators a
-    consumer thread) must not spill."""
-    for kernel in ("bitmm", "closure_delete"):
+def bitgemm_spills() -> None:
+    """B1-B3's main kernels (dense path: 128 int32 accumulators a consumer
+    thread) must not spill."""
+    for kernel in BITGEMM_KERNELS:
         line = PTXAS.get(kernel, {}).get("spills", "")
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
         check(found is not None and found.groups() == ("0", "0"),
               f"{kernel} must not spill registers: ptxas says {line!r}")
-    say("build", "B1's and B3's main kernels: no spills")
+    say("build", "B1-B3's main kernels: no spills")
 
 
 def check_sass(lib) -> None:
     """B7's bf16 and f16 instantiations must compute their products with
-    wgmma (HGMMA in the SASS) and hold no mma.sync (HMMA); B1's and B3's
-    main kernels (their dense path) must hold integer wgmma (IGMMA)."""
+    wgmma (HGMMA in the SASS) and hold no mma.sync (HMMA); B1-B3's main
+    kernels (their dense path) must hold integer wgmma (IGMMA)."""
     from repro_torch.kernels import _build
 
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -307,20 +327,22 @@ def check_sass(lib) -> None:
             found[f"{t.group(1)}, d={t.group(2)}"] = (
                 len(re.findall(r"\bHGMMA\b", body)),
                 len(re.findall(r"\bHMMA\b", body)))
-        t = re.search(r"(bitmm_kernel|closure_delete_kernel)", name)
+        t = re.search("|".join(f"{k}_kernel" for k in BITGEMM_KERNELS),
+                      name)
         if t:
-            integer[t.group(1)] = len(re.findall(r"\bIGMMA\b", body))
+            integer[t.group(0)] = len(re.findall(r"\bIGMMA\b", body))
     check(len(found) == 8 and all(g > 0 and h == 0
                                   for g, h in found.values()),
           f"B7's 16-bit instantiations must use wgmma and no mma.sync: "
           f"(HGMMA, HMMA) per instantiation {found}")
     say("build", "B7's 16-bit instantiations compute with wgmma: (HGMMA, "
         f"HMMA) in the SASS of each {found}")
-    check(len(integer) == 2 and all(n > 0 for n in integer.values()),
-          f"B1's and B3's main kernels must use integer wgmma: IGMMA per "
-          f"kernel {integer}")
-    say("build", f"B1's and B3's dense path computes with integer wgmma: "
-        f"IGMMA in the SASS of each {integer}")
+    check(len(integer) == len(BITGEMM_KERNELS)
+          and all(n > 0 for n in integer.values()),
+          f"B1-B3's main kernels must use integer wgmma: IGMMA per kernel "
+          f"{integer}")
+    say("build", f"B1-B3's dense path computes with integer wgmma: IGMMA "
+        f"in the SASS of each {integer}")
 
 
 # ------------------------------------------------------------ 3. kernels
@@ -362,7 +384,7 @@ def profiled(fn, reps: int):
 
 def kernel_device_parts(fn, reps: int, kernel: str):
     """Mean device milliseconds per launch of the CUDA kernel named
-    ``kernel`` and of its first launch (``kernel``_work_kernel: B1 and B3
+    ``kernel`` and of its first launch (``kernel``_work_kernel: B1-B3
     count each row block's work before the product; 0.0 for the others)
     over ``reps`` calls of ``fn``, from `torch.profiler`: the kernels
     alone, without the host time of the wrapper (which sets the per-call
@@ -384,7 +406,7 @@ def kernel_device_parts(fn, reps: int, kernel: str):
 
 def kernel_device_ms(fn, reps: int, kernel: str) -> float:
     """Device milliseconds of a call of ``fn``: its kernel's launch plus,
-    for B1 and B3, their first launch (`kernel_device_parts`)."""
+    for B1-B3, their first launch (`kernel_device_parts`)."""
     return sum(kernel_device_parts(fn, reps, kernel))
 
 
@@ -626,43 +648,119 @@ def b1_b3_cases(gen, err) -> int:
     return n_cases
 
 
+def b2_cases(gen, err) -> int:
+    """B2 bit for bit against its plain version, each case as the main
+    path calls it and with every block forced sparse or dense: the shapes
+    of tests/test_kernels.py at closure densities 0, 5 and 50%; C = 320
+    and 1056 (not multiples of 128) at B = 32, 96 and 1024; mask densities
+    0-100% across the threshold; an all-ones closure; block-mixed masks
+    (alternate 128-row blocks 1% and full); the main path's C = 16384,
+    B = 1024 at 1% and 50%.  Returns the number of cases; updates err."""
+    from repro_torch.kernels import closure_update, ops
+
+    n_cases = 0
+
+    def b2(closure, mask, rows):
+        nonlocal n_cases
+        want = ops.closure_update(closure, mask, rows, impl="ref")
+        sparse, dense = forced_works(closure.shape[0], closure.device)
+        for got in (ops.closure_update(closure, mask, rows, impl="cuda"),
+                    closure_update.closure_update_paths(closure, mask, rows,
+                                                        sparse),
+                    closure_update.closure_update_paths(closure, mask, rows,
+                                                        dense)):
+            err["closure_update"] = max(err["closure_update"],
+                                        mismatch(got, want))
+        n_cases += 1
+
+    for c, b in [(128, 32), (256, 64), (512, 256), (1024, 32), (320, 64)]:
+        for d in (0.0, 0.05, 0.5):
+            b2(packed((c, c), d, gen), packed((c, b), 0.2, gen),
+               packed((b, c), 0.1, gen))
+    for c in (320, 1056):
+        for b in (32, 96, 1024):
+            for md in (0.0, 0.01, 0.05, 0.07, 0.09, 0.12, 0.3, 1.0):
+                b2(packed((c, c), 0.01, gen), packed((c, b), md, gen),
+                   packed((b, c), 0.05, gen))
+            b2(torch.full((c, c // 32), -1, dtype=torch.int32,
+                          device="cuda"),
+               packed((c, b), 0.3, gen), packed((b, c), 0.3, gen))
+            b2(packed((c, c), 0.01, gen), block_mixed(c, b, gen),
+               packed((b, c), 0.25, gen))
+    for md in (0.01, 0.5):
+        b2(packed((C_FULL, C_FULL), 0.01, gen), packed((C_FULL, B_FULL), md,
+                                                       gen),
+           packed((B_FULL, C_FULL), 0.01, gen))
+    return n_cases
+
+
+def forced_crossover(name, m, densities, operands, paths, reps):
+    """``name``'s main launch with every block forced sparse, then dense,
+    at each density d: ``paths(*operands(d), work)``, ms a call (CUDA
+    events; ``reps`` = (calls below 10%, calls from 10%)); the two paths
+    agree bit for bit.  Returns [(d, {"sparse": ms, "dense": ms})]."""
+    sparse, dense = forced_works(m, "cuda")
+    out = []
+    for d in densities:
+        args = operands(d)
+        outs, ms = [], {}
+        for label, work in (("sparse", sparse), ("dense", dense)):
+            def fn(work=work):
+                return paths(*args, work)
+            outs.append(fn())
+            ms[label] = cuda_ms(fn, reps[d >= 0.1])
+        check(torch.equal(outs[0], outs[1]),
+              f"{name}'s paths disagree at {d:.0%} density")
+        out.append((d, ms))
+        del args, outs
+    return out
+
+
+def path_times(rows) -> str:
+    return "; ".join(f"{d:.0%} " + " ".join(f"{k} {v:.4f}"
+                                           for k, v in ms.items())
+                     for d, ms in rows)
+
+
 def crossover(gen) -> None:
     """B1's two paths at one shape, the C=16384 squaring (lhs is rhs) at
-    densities 1% .. 50%, and the frontier hop at 1%: the main launch with
-    every block forced sparse or dense, ms a call (CUDA events); the two
-    agree bit for bit.  The threshold
-    (kDensePerMille) is set from where the sparse time crosses the dense
-    one."""
+    densities 1% .. 50%, and the frontier hop at 1% (`forced_crossover`).
+    The threshold (kDensePerMille) is set from where the sparse time
+    crosses the dense one."""
     from repro_torch.kernels import bitmm
 
     c = C_FULL
-    sparse, dense = forced_works(c, "cuda")
-    rows = []
-    for d in (0.01, 0.02, 0.05, 0.1, 0.25, 0.5):
+
+    def square(d):
         x = packed((c, c), d, gen)
-        outs, ms = [], {}
-        for label, fn in (("sparse", lambda: bitmm.bitmm_paths(x, x, sparse)),
-                          ("dense", lambda: bitmm.bitmm_paths(x, x, dense))):
-            outs.append(fn())
-            ms[label] = cuda_ms(fn, 2 if d >= 0.1 else 5)
-        check(all(torch.equal(o, outs[0]) for o in outs),
-              f"B1's paths disagree at the {d:.0%} squaring")
-        rows.append((d, ms))
-        del x, outs
+        return x, x
+
+    rows = forced_crossover("B1", c, (0.01, 0.02, 0.05, 0.1, 0.25, 0.5),
+                            square, bitmm.bitmm_paths, (5, 2))
     say("kernels", f"bitmm crossover, C={c} squaring (lhs is rhs), ms a "
-        "main launch by path: " + "; ".join(
-            f"{d:.0%} " + " ".join(f"{k} {v:.4f}" for k, v in ms.items())
-            for d, ms in rows))
-    sparse_b = forced_works(B_FULL, "cuda")[0]
-    dense_b = forced_works(B_FULL, "cuda")[1]
+        f"main launch by path: {path_times(rows)}")
     front, rhs = packed((B_FULL, c), 0.01, gen), packed((c, c), 0.01, gen)
-    hop = {label: cuda_ms(fn, 20) for label, fn in (
-        ("sparse", lambda: bitmm.bitmm_paths(front, rhs, sparse_b)),
-        ("dense", lambda: bitmm.bitmm_paths(front, rhs, dense_b)))}
+    hop = forced_crossover("B1", B_FULL, (0.01,), lambda d: (front, rhs),
+                           bitmm.bitmm_paths, (20, 20))
     say("kernels", f"bitmm frontier hop ({B_FULL}, {c // 32}) x ({c}, "
-        f"{c // 32}), 1%, ms a main launch by path: " + " ".join(
-            f"{k} {v:.4f}" for k, v in hop.items())
-        + f"; compiled threshold {bitmm.dense_per_mille()} per mille")
+        f"{c // 32}), 1%, ms a main launch by path: {path_times(hop)}"
+        f"; compiled threshold {bitmm.dense_per_mille()} per mille")
+
+
+def b2_crossover(closure, rows, gen) -> None:
+    """B2's two paths on the C=16384, B=1024 fold (K = B) at mask
+    densities 1% .. 50%, rows 1% dense (`forced_crossover`).  B1's
+    crossover (K = 16384) set the shared threshold; this line shows where
+    B2's lies."""
+    from repro_torch.kernels import closure_update
+
+    times = forced_crossover(
+        "B2", C_FULL, (0.01, 0.02, 0.05, 0.1, 0.2, 0.5),
+        lambda d: (closure, packed((C_FULL, B_FULL), d, gen), rows),
+        closure_update.closure_update_paths, (20, 5))
+    say("kernels", f"closure_update crossover, C={C_FULL} B={B_FULL} fold "
+        f"(K = B), rows 1% dense, ms a main launch by path: "
+        f"{path_times(times)}")
 
 
 def dense_closure(gen):
@@ -685,6 +783,7 @@ def dense_closure(gen):
 def phase_kernels():
     """Bit-identity sweeps plus timings; returns {kernel: record}."""
     from repro_torch.kernels import ops
+    from repro_torch.launch.tiled_call_turns import captured_fold
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = {k: 0.0 for k in BIT_KERNELS}
@@ -697,14 +796,8 @@ def phase_kernels():
                 ops.bitmm_packed(lhs, rhs, impl="cuda"),
                 ops.bitmm_packed(lhs, rhs, impl="ref")))
             n_cases += 1
-    for c, b in [(128, 32), (256, 64), (512, 256), (1024, 32), (320, 64)]:
-        for d in (0.0, 0.05, 0.5):
-            args = (packed((c, c), d, gen), packed((c, b), 0.2, gen),
-                    packed((b, c), 0.1, gen))
-            err["closure_update"] = max(err["closure_update"], mismatch(
-                ops.closure_update(*args, impl="cuda"),
-                ops.closure_update(*args, impl="ref")))
-            n_cases += 1
+    n_b2 = b2_cases(gen, err)
+    n_cases += n_b2
     for c in (128, 320, 512, 1024):
         for af in (0.0, 0.25, 1.0):
             args = (packed((c, c), 0.05, gen), packed((c, c), 0.05, gen),
@@ -763,7 +856,9 @@ def phase_kernels():
     torch.cuda.synchronize()
     say("kernels", f"{n_cases} cases on the card (test_kernels.py shapes; "
         f"{n_b1_b3} of B1 and B3 over densities 0-100%, block-mixed, "
-        f"ragged, lhs is rhs, the frontier hop, each by both paths; tiled "
+        f"ragged, lhs is rhs, the frontier hop, and {n_b2} of B2 over mask "
+        f"densities 0-100%, block-mixed, C 320 / 1056, B 32-1024, an "
+        f"all-ones closure, each by both paths; tiled "
         f"windows 32-4096, lhs rows of 0-33 and all set bits), max abs err "
         f"per kernel {err}")
     check(not any(err.values()), f"kernel disagrees with its plain "
@@ -853,16 +948,37 @@ def phase_kernels():
             2 * popcount_total(closure) * c, reps=3, plain_reps=1,
             lib_reps=3)
     del closure, every
-    # B2: the rank-B fold at C=16384, B=1024
-    mask = packed((c, B_FULL), 0.01, gen)
+    # B2: the rank-B fold at C=16384, B=1024: 1% and 50% dense masks, the
+    # two paths' crossover, and the last fold of two main-path streams
     rows = packed((B_FULL, c), 0.01, gen)
-    records["closure_update"] = measure(
-        "closure_update", f"C={c} B={B_FULL}, 1% dense mask and rows",
-        lambda: ops.closure_update(lhs, mask, rows, impl="cuda"),
-        lambda: ops.closure_update(lhs, mask, rows, impl="ref"),
-        (mask, rows), (2 * c * w + c * B_FULL // 32 + B_FULL * w) * 4,
-        2 * popcount_total(mask) * c)
-    del mask, rows
+    fold_bytes = (2 * c * w + c * B_FULL // 32 + B_FULL * w) * 4
+    for md in (0.01, 0.5):
+        mask = packed((c, B_FULL), md, gen)
+        rec = measure(
+            "closure_update", f"C={c} B={B_FULL}, {md:.0%} dense mask, 1% "
+            f"dense rows, {dense_share(mask):.0%} of row blocks dense",
+            lambda: ops.closure_update(lhs, mask, rows, impl="cuda"),
+            lambda: ops.closure_update(lhs, mask, rows, impl="ref"),
+            (mask, rows), fold_bytes, 2 * popcount_total(mask) * c,
+            plain_reps=3 if md < 0.1 else 1)
+        if md == 0.01:
+            records["closure_update"] = rec
+    del mask
+    b2_crossover(lhs, rows, gen)
+    del rows
+    for profile in ("insheavy", "delheavy"):
+        closure, mask, rows = captured_fold(profile)
+        bits = popcount_total(mask)
+        measure("closure_update", f"the last fold of the {profile} stream "
+                f"(C={c}, mask {tuple(mask.shape)}: B={rows.shape[0]}), "
+                f"{bits} mask bits set ({bits / mask.numel() / 32:.4%}), "
+                f"{dense_share(mask):.0%} of row blocks dense",
+                lambda: ops.closure_update(closure, mask, rows, impl="cuda"),
+                lambda: ops.closure_update(closure, mask, rows, impl="ref"),
+                (mask, rows),
+                (2 * closure.numel() + mask.numel() + rows.numel()) * 4,
+                2 * bits * c)
+        del closure, mask, rows
     # B3: one repair hop at C=16384, 1% and 25% of the rows affected
     from repro_torch.core import bitset
     for frac in (0.01, 0.25):
@@ -1179,6 +1295,12 @@ def embbag_records():
         ((64, 1100, 4, 5), (f32,)), ((64, 2056, 3, 5), (bf16,)),
         ((16, 8, 0, 3), (f32,)),                         # ragged, B = 0
     ]
+    # both paths (rows of <= 16 bytes split the k loop across lanes):
+    # K from one lane group of 1 to 32 lanes past 32 and past a lane's 8
+    # gathers, D across both paths, B from one bag to many blocks
+    cases += [((300, d, b, k), (f32, bf16))
+              for k in (1, 2, 31, 32, 33, 39, 64, 100)
+              for d in (1, 2, 3, 4, 8) for b in (1, 7, 512)]
     worst = {f32: 0.0, bf16: 0.0}
     ratio = {f32: 0.0, bf16: 0.0}
     n = 0
@@ -1239,22 +1361,27 @@ def embbag_records():
             ("kernel_bench R=1000000 D=64 B=4096 K=4, unit weights", bench)):
         bb, kk = idx.shape
         d = table.shape[1]
-        rec = {"ms": cuda_ms(lambda: ops.embedding_bag(table, idx, w,
-                                                       impl="cuda"), 200),
+
+        def kern():
+            return ops.embedding_bag(table, idx, w, impl="cuda")
+
+        rec = {"ms": cuda_ms(kern, 200),
                "plain_ms": cuda_ms(lambda: ops.embedding_bag(
                    table, idx, w, impl="ref"), 20),
                "library_ms": cuda_ms(
                    lambda: torch.nn.functional.embedding_bag(
                        idx, table, per_sample_weights=w, mode="sum"), 200),
                "max_abs_err": worst[f32]}
-        device = kernel_device_ms(lambda: ops.embedding_bag(table, idx, w,
-                                                            impl="cuda"),
-                                  200, "embbag")
+        device = kernel_device_ms(kern, 200, "embbag")
+        path = ("k split across lanes" if any(
+            "embbag_kernel_ksplit" in e.key for e in profiled(kern, 1))
+            else "a thread a chunk")
         nbytes = 4 * (bb * kk * d + 2 * bb * kk + bb * d)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * bb * kk * d,
                                                  F32_FLOP_PER_S)
-        say("kernels", f"embbag {label}, f32: kernel_ms={rec['ms']:.4f} "
-            f"(device_ms={device:.4f} alone) plain_ms={rec['plain_ms']:.4f} "
+        say("kernels", f"embbag {label}, f32, path {path}: kernel_ms="
+            f"{rec['ms']:.4f} (device_ms={device:.4f} alone) plain_ms="
+            f"{rec['plain_ms']:.4f} "
             f"bound_ms={rec['bound_ms']:.6f} ({rec['bound_by']}: {nbytes} "
             f"bytes) library_ms={rec['library_ms']:.4f} (one "
             "F.embedding_bag(mode='sum') call: a yardstick only, the port "

@@ -1,10 +1,15 @@
-// The two paths of the packed boolean products B1 (bitmm.cu) and B3
-// (closure_delete.cu) on Hopper (sm_90a), chosen on the device for each
-// block of 128 lhs rows.
+// The two paths of the packed boolean products B1 (bitmm.cu), B2
+// (closure_update.cu) and B3 (closure_delete.cu) on Hopper (sm_90a),
+// chosen on the device for each block of 128 lhs rows.
 //
 //   out[m] = OR over {j : lhs bit j of row m set} of rhs[j]
 //   lhs uint32 (M, K/32), rhs uint32 (K, N/32) -> out uint32 (M, N/32)
+//   B2: lhs = mask (C, B/32), rhs = rows (B, C/32), out[w] = closure[w] |
+//       product
 //   B3: lhs = r, rhs = s, out[w] = affected[w] ? r[w] | product : r[w]
+// The three differ only in the old words an output row starts from (Mode):
+// none (B1), a separate operand of wn words a row (B2's closure), or the
+// lhs row itself on affected rows (B3).
 //
 // Words are LSB first: column j of a row is bit j & 31 of word j >> 5.
 //
@@ -29,7 +34,9 @@
 //   before any is used; the list is in row order, so loaded words are
 //   ORed in registers and into the row's words in shared memory only when
 //   the row changes.  No block-wide barrier inside; an affected row of B3
-//   spreads over all twelve warps; unaffected rows are one copy.
+//   spreads over all twelve warps; unaffected rows are one copy.  B2's
+//   and B3's rows start from their old words, read once into shared
+//   memory.
 // * Dense: int8 tensor cores on tiles unpacked in shared memory, bound by
 //   the 2 x 128 x K x N operations of the block (1979 TOP/s int8 on an
 //   H100 SXM: 4.4 ms for a whole C = 16384 squaring).  The CTA walks its
@@ -64,8 +71,8 @@
 //   - Epilogue: acc > 0 is a bit (no sum overflows: bytes <= 1 x 128,
 //     K < 2^24); the 4 lanes that hold a row's 32 columns of a word OR
 //     their 8 bits by __shfl_xor_sync and each writes a quarter of the
-//     words.  B3 writes old | bits on affected rows and old on the others,
-//     as the TPU kernel's jnp.where.
+//     words.  B2 writes closure | bits; B3 writes old | bits on affected
+//     rows and old on the others, as the TPU kernel's jnp.where.
 //   Nothing leaves shared memory unpacked; no scratch but the work array.
 //
 // The threshold (kDensePerMille): the sparse path's time grows with the
@@ -74,7 +81,11 @@
 // C = 16384 squaring at densities 1% .. 50% (its "crossover" line).
 // Measured on an H100 80GB HBM3 at 700 W: sparse 1.17 ms at 1%, 2.23 at
 // 2%, 5.72 at 5%, 10.92 at 10%; dense 8.80-8.94 at every density.  They
-// cross at ~8.1%, so a block goes dense above 80 per mille.
+// cross at ~8.1%, so a block goes dense above 80 per mille.  B2's fold
+// (K = 1024: 8 stages a dense tile, and the old closure in its epilogue)
+// crosses at ~10.5% (sparse 0.11 / 0.31 / 0.56 / 1.05 ms at 1 / 5 / 10 /
+// 20% mask density, dense 0.58-0.59 at every density; same card), within
+// 2x of B1's, so the three share the one threshold.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -122,6 +133,13 @@ constexpr uint32_t kPackRhsBytes = (128 * 8 + kPad * 16) * 4;
 constexpr uint32_t kPackBytes = kPackRhsBytes + kATileBytes;
 constexpr uint32_t kPackOffset = kBarOffset + 32 * kStages;
 constexpr size_t kSmemBytes = kPackOffset + kPackStages * kPackBytes + 1024;
+
+// What a row's output starts from, and which rows gather:
+//   kProduct (B1): 0; every row gathers.
+//   kFold (B2): old, a separate (M, wn) operand; every row gathers.
+//   kDelete (B3): old is the lhs (wk == wn); affected rows gather onto it,
+//     the others are old.
+enum class Mode { kProduct, kFold, kDelete };
 
 __device__ __forceinline__ bool is_dense(int work, int wk) {
   return static_cast<long long>(work) * 1000 >
@@ -255,7 +273,7 @@ __device__ __forceinline__ void gather_list(const uint32_t* __restrict__ list,
 
 // 32 rows (the sub-th quarter of the row block) x 128 output words (lane =
 // 4 words): a quarter block a CTA, so that a small M still fills the
-// card.  Its output words start at 0 (B3: the old words of r) in shared
+// card.  Its output words start at 0 (B2, B3: the old words) in shared
 // memory.  Its gathering rows (B3: the affected ones) hold n_rows x wk
 // lhs words; each warp scans a twelfth of them, in order, 64 words a round
 // (kScanAhead rounds loaded at once, the next while these are scanned),
@@ -265,11 +283,11 @@ __device__ __forceinline__ void gather_list(const uint32_t* __restrict__ list,
 // last; no warp walks a row alone, so one affected row spreads over all
 // twelve warps.  A lane owns 4 words, so each entry's instructions serve
 // 512 bytes.
-template <bool kDelete>
+template <Mode kMode>
 __device__ __forceinline__ void sparse_block(
     const uint32_t* __restrict__ lhs, const uint32_t* __restrict__ rhs,
-    const uint32_t* __restrict__ affected, uint32_t* __restrict__ out, int m,
-    int wk, int wn, int sub) {
+    const uint32_t* __restrict__ old, const uint32_t* __restrict__ affected,
+    uint32_t* __restrict__ out, int m, int wk, int wn, int sub) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint32_t* sacc = reinterpret_cast<uint32_t*>(smem_raw);
   int* rows_of = reinterpret_cast<int*>(smem_raw + kSRows);
@@ -283,18 +301,19 @@ __device__ __forceinline__ void sparse_block(
   const bool vec = (wn & 3) == 0 &&
                    ((reinterpret_cast<uintptr_t>(lhs) |
                      reinterpret_cast<uintptr_t>(rhs) |
+                     reinterpret_cast<uintptr_t>(old) |
                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
 
-  {
-    constexpr int kPer = (kSubRows + kWarps - 1) / kWarps;
-    uint4 v[kPer];   // every load issued before the first store
+  constexpr int kPer = (kSubRows + kWarps - 1) / kWarps;
+  uint4 v[kPer];   // the old words, every load issued before the first store
 #pragma unroll
-    for (int x = 0; x < kPer; ++x) {
-      const int r = warp + x * kWarps;
-      v[x] = kDelete && r < rows   // lhs is r, so wk == wn
-                 ? load_words(lhs, r0 + r, n, wn, vec)
-                 : uint4{};
-    }
+  for (int x = 0; x < kPer; ++x) {
+    const int r = warp + x * kWarps;
+    v[x] = kMode != Mode::kProduct && r < rows
+               ? load_words(old, r0 + r, n, wn, vec)
+               : uint4{};
+  }
+  auto store_old = [&]() {
 #pragma unroll
     for (int x = 0; x < kPer; ++x) {
       const int r = warp + x * kWarps;
@@ -302,14 +321,23 @@ __device__ __forceinline__ void sparse_block(
         *reinterpret_cast<uint4*>(&sacc[r * kBlockWords + kLaneWords * lane]) =
             v[x];
     }
-  }
+  };
+  // B3 numbers its affected rows in shared memory before it scans.  In B1
+  // and B2 every row below `rows` gathers (gathering row i is local row
+  // i), so their first scan batch is issued below, beside the old words'
+  // loads, and the barrier comes after it: a near-empty fold waits on one
+  // round of loads, not two.
+  if constexpr (kMode == Mode::kDelete) store_old();
   static_assert(kSubRows == 32, "one warp's ballot numbers the rows");
   const bool g = lane < rows &&
-                 (!kDelete || row_affected(affected, r0 + lane));
+                 (kMode != Mode::kDelete || row_affected(affected, r0 + lane));
   const uint32_t gathering = __ballot_sync(kFullMask, g);   // every warp
   const int n_rows = __popc(gathering);
-  if (warp == 0 && g) rows_of[__popc(gathering & ((1u << lane) - 1u))] = lane;
-  __syncthreads();
+  if constexpr (kMode == Mode::kDelete) {
+    if (warp == 0 && g)
+      rows_of[__popc(gathering & ((1u << lane) - 1u))] = lane;
+    __syncthreads();
+  }
 
   // Words are numbered f = (gathering row i) * wk + kw; this warp scans
   // [lo, hi), lane words lo + 64 round + 2 lane + x.
@@ -335,7 +363,8 @@ __device__ __forceinline__ void sparse_block(
       for (int x = 0; x < kScanWords; ++x) {
         const int y = d * kScanWords + x;
         const bool ok = f + x < hi;
-        const int row = ok ? rows_of[i0] : 0;
+        const int row =
+            !ok ? 0 : kMode == Mode::kDelete ? rows_of[i0] : i0;
         we[y] = (static_cast<uint32_t>(row) << 24) |
                 static_cast<uint32_t>(kw0 * 32);
         w[y] = ok ? __ldg(lhs + static_cast<size_t>(r0 + row) * wk + kw0)
@@ -355,6 +384,10 @@ __device__ __forceinline__ void sparse_block(
     }
   };
   if (lo < hi) load_batch();
+  if constexpr (kMode != Mode::kDelete) {
+    store_old();
+    __syncthreads();   // every row's old words are in before a gather
+  }
   int count = 0;   // entries in this warp's list
   for (int base = lo; base < hi; base += kScanAhead * kStep) {
     uint32_t cw[kBatchWords], ce[kBatchWords];
@@ -548,11 +581,11 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[8], int q,
   return q & 2 ? b : a;
 }
 
-template <bool kDelete>
+template <Mode kMode>
 __device__ __forceinline__ void dense_block(
     const uint32_t* __restrict__ lhs, const uint32_t* __restrict__ rhs,
-    const uint32_t* __restrict__ affected, uint32_t* __restrict__ out, int m,
-    int wk, int wn) {
+    const uint32_t* __restrict__ old, const uint32_t* __restrict__ affected,
+    uint32_t* __restrict__ out, int m, int wk, int wn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_b = base;
@@ -737,16 +770,17 @@ __device__ __forceinline__ void dense_block(
       for (int i = 0; i < 2; ++i) {
         const int row = r0 + lr + 8 * i;
         if (row >= m) continue;
-        const bool aff = kDelete ? row_affected(affected, row) : true;
+        const bool aff =
+            kMode == Mode::kDelete ? row_affected(affected, row) : true;
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
           const int col = col0 + q + 4 * hi;
           if (col >= wn) continue;
           const size_t at = static_cast<size_t>(row) * wn + col;
           uint32_t v = pick4(word[i], q, hi);
-          if constexpr (kDelete) {   // lhs is r: the old word
-            const uint32_t old = lhs[at];
-            v = aff ? old | v : old;
+          if constexpr (kMode != Mode::kProduct) {
+            const uint32_t o = old[at];
+            v = aff ? o | v : o;
           }
           out[at] = v;
         }
@@ -755,18 +789,22 @@ __device__ __forceinline__ void dense_block(
   }
 }
 
-// One CTA of the main launch: the block's path by its work entry.
-template <bool kDelete>
+// One CTA of the main launch: the block's path by its work entry.  old:
+// null (kProduct), B2's closure (kFold) or the lhs (kDelete); affected:
+// kDelete's row mask, else null.
+template <Mode kMode>
 __device__ __forceinline__ void product_block(
     const uint32_t* __restrict__ lhs, const uint32_t* __restrict__ rhs,
-    const uint32_t* __restrict__ affected, uint32_t* __restrict__ out,
-    const int* __restrict__ work, int m, int wk, int wn) {
+    const uint32_t* __restrict__ old, const uint32_t* __restrict__ affected,
+    uint32_t* __restrict__ out, const int* __restrict__ work, int m, int wk,
+    int wn) {
   // kSubBlocks CTAs a row block: a dense block is the first one's alone
   const int sub = blockIdx.x % kSubBlocks;
   if (is_dense(work[blockIdx.x / kSubBlocks], wk)) {
-    if (sub == 0) dense_block<kDelete>(lhs, rhs, affected, out, m, wk, wn);
+    if (sub == 0)
+      dense_block<kMode>(lhs, rhs, old, affected, out, m, wk, wn);
   } else {
-    sparse_block<kDelete>(lhs, rhs, affected, out, m, wk, wn, sub);
+    sparse_block<kMode>(lhs, rhs, old, affected, out, m, wk, wn, sub);
   }
 }
 

@@ -43,7 +43,8 @@ __global__ void __launch_bounds__(bg::kThreads, 1)
 bitmm_kernel(const uint32_t* __restrict__ lhs, const uint32_t* __restrict__ rhs,
              uint32_t* __restrict__ out, const int* __restrict__ work, int m,
              int wk, int wn) {
-  bg::product_block<false>(lhs, rhs, nullptr, out, work, m, wk, wn);
+  bg::product_block<bg::Mode::kProduct>(lhs, rhs, nullptr, nullptr, out, work,
+                                        m, wk, wn);
 }
 
 int launch_bitmm(const void* lhs, const void* rhs, void* out, const void* work,

@@ -49,7 +49,7 @@ closure_delete_kernel(const uint32_t* __restrict__ r,
                       const uint32_t* __restrict__ affected,
                       uint32_t* __restrict__ out,
                       const int* __restrict__ work, int c, int w) {
-  bg::product_block<true>(r, s, affected, out, work, c, w, w);
+  bg::product_block<bg::Mode::kDelete>(r, s, r, affected, out, work, c, w, w);
 }
 
 int launch_delete(const void* r, const void* s, const void* affected,

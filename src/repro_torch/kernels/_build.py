@@ -20,8 +20,8 @@ outputs with torch (B4, B5: ``torch.empty_like`` and ``new_empty``;
 pointers and sizes; each entry point launches with ``<<<>>>`` and
 returns ``cudaGetLastError``, and a non-zero return code raises.
 
-`LAUNCHES` counts kernel launches, one per successful wrapper call (B1
-and B3 launch twice a call, a count and the product, and count one),
+`LAUNCHES` counts kernel launches, one per successful wrapper call (B1,
+B2 and B3 launch twice a call, a count and the product, and count one),
 bumped by each wrapper (`kernels/bitmm.py`, `closure_update.py`,
 `closure_delete.py`, the last two holding the dense and the tiled
 variants, `flash_attention.py` and `embbag.py`) right where it launches;
@@ -56,13 +56,15 @@ LAUNCHES = {"bitmm": 0, "closure_update": 0, "closure_delete": 0,
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as void*, sizes as int;
 # flash attention adds its scale as a float and its 12 strides as an array;
-# B1 and B3 take a work array, and have a "_paths" entry that takes it
+# B1-B3 take a work array, and have a "_paths" entry that takes it
 # filled, for timing one path)
 _SIGNATURES = {
     "repro_bitmm": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "repro_bitmm_paths": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "repro_bitgemm_dense_per_mille": [],
-    "repro_closure_update": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "repro_closure_update": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "repro_closure_update_paths": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                                   _VP],
     "repro_closure_delete": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     "repro_closure_delete_paths": [_VP, _VP, _VP, _VP, _VP, _INT, _INT,
                                    _VP],

@@ -4,11 +4,12 @@
 
 ``embbag(table (R, D), idx (B, K), weights (B, K))`` -> out (B, D) in the
 table's type, out[b] = sum_k w[b, k] * table[idx[b, k]] summed in float32
-in ascending k.  CUDA tensors on one device: a contiguous table of
-float32 or bfloat16, contiguous int32 idx and float32 weights (0 for
-padding); any B >= 0, K >= 1, D >= 1.  Indices in [0, R) are the
-caller's contract, as in the reference: nothing here reads them on the
-host.  It launches its kernel or raises; for B = 0 it returns the empty
+(a row of at most 16 bytes: the k loop split across lanes, then a fixed
+shuffle tree; wider rows: in ascending k).  CUDA tensors on one device:
+a contiguous table of float32 or bfloat16, contiguous int32 idx and
+float32 weights (0 for padding); any B >= 0, K >= 1, D >= 1.  Indices in
+[0, R) are the caller's contract, as in the reference: nothing here
+reads them on the host.  It launches its kernel or raises; for B = 0 it returns the empty
 output without a launch.  The plain version is `kernels/ref.embbag_ref`.
 """
 from __future__ import annotations

@@ -55,12 +55,12 @@ def rounding_bound(table, idx, w, want):
     return tol
 
 
-def assert_within_bound(got, want, table, idx, w):
+def assert_within_bound(got, want, table, idx, w, label=""):
     err = (got.double() - want.double()).abs()
     tol = rounding_bound(table, idx, w, want)
     assert bool((err <= tol).all()), (
-        f"{table.dtype}: max abs err {float(err.max())}, largest error over "
-        f"its bound {float((err / tol.clamp(min=1e-300)).max())}")
+        f"{label or table.dtype}: max abs err {float(err.max())}, largest "
+        f"error over its bound {float((err / tol.clamp(min=1e-300)).max())}")
 
 
 def port_inputs(table, idx, w, dtype, device="cpu"):
@@ -157,6 +157,16 @@ CARD_SHAPES = SHAPES + [(5000, 1, 512, 39), (300, 3, 7, 5), (64, 40, 9, 33),
                         (64, 1100, 4, 5), (64, 2056, 3, 5), (16, 8, 0, 3)]
 
 
+# The kernel's two paths: rows of at most 16 bytes split each bag's k loop
+# across lanes (float32 D <= 4, bfloat16 D <= 8), wider rows take a
+# thread a chunk.  The xDeepFM item also sweeps K (one lane group of 1-32
+# lanes, K past 32 and past 8 rounds of a lane's gathers), D across both
+# paths and B from one bag to many blocks.
+SWEEP_K = (1, 2, 31, 32, 33, 39, 64, 100)
+SWEEP_D = (1, 2, 3, 4, 8)
+SWEEP_B = (1, 7, 512)
+
+
 # Parametrized over shapes, each looping over both types inside: the
 # count of card cases, which only skip on the CPU, is held down (ROADMAP
 # "How this round works").
@@ -164,15 +174,23 @@ CARD_SHAPES = SHAPES + [(5000, 1, 512, 39), (300, 3, 7, 5), (64, 40, 9, 33),
 @pytest.mark.parametrize("shape", CARD_SHAPES)
 def test_embbag_kernel_matches_plain_on_card(shape):
     dev = _need_card()
-    for dtype in DTYPES:
-        table, idx, w = port_inputs(*case(*shape), dtype, device=dev)
-        before = ops.LAUNCHES["embbag"]
-        got = ops.embedding_bag(table, idx, w, impl="cuda")
-        torch.cuda.synchronize()
-        assert ops.LAUNCHES["embbag"] == before + (shape[2] > 0), dtype
-        want = ops.embedding_bag(table, idx, w, impl="ref")
-        assert got.dtype == want.dtype and got.shape == want.shape, dtype
-        assert_within_bound(got.float(), want.float(), table, idx, w)
+    shapes = [shape]
+    if shape == (5000, 1, 512, 39):
+        shapes += [(300, d, b, k) for k in SWEEP_K for d in SWEEP_D
+                   for b in SWEEP_B]
+    for rows, d, b, k in shapes:
+        for dtype in DTYPES:
+            label = f"R={rows} D={d} B={b} K={k} {dtype}"
+            table, idx, w = port_inputs(*case(rows, d, b, k), dtype,
+                                        device=dev)
+            before = ops.LAUNCHES["embbag"]
+            got = ops.embedding_bag(table, idx, w, impl="cuda")
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["embbag"] == before + (b > 0), label
+            want = ops.embedding_bag(table, idx, w, impl="ref")
+            assert got.dtype == want.dtype and got.shape == want.shape, label
+            assert_within_bound(got.float(), want.float(), table, idx, w,
+                                label)
 
 
 @pytest.mark.cuda

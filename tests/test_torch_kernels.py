@@ -152,7 +152,7 @@ def _need_card():
 
 def block_mixed(rng, m, k):
     """Packed (m, k/32) rows whose 128-row blocks alternate between 1%
-    dense and full: B1/B3 take both paths in one launch."""
+    dense and full: B1-B3 take both paths in one launch."""
     a = packed(rng, (m, k), 0.01)
     for b0 in range(128, m, 256):
         a[b0:b0 + 128] = 0xFFFFFFFF
@@ -160,7 +160,7 @@ def block_mixed(rng, m, k):
 
 
 def forced_paths(m, dev):
-    """Work arrays sending every 128-row block of B1/B3's main launch down
+    """Work arrays sending every 128-row block of B1-B3's main launch down
     the sparse (0) or the dense (int32 max) path."""
     blocks = (m + 127) // 128
     return (torch.zeros(blocks, dtype=torch.int32, device=dev),
@@ -203,16 +203,53 @@ def test_bitmm_kernel_matches_plain_on_card(m, k, n):
                     f"{label}, every block {path}"
 
 
+# B2's mask densities straddling the dense threshold (80 per mille of a
+# block's cells), with the shapes of UPDATE_SHAPES; the last item also
+# runs C not a multiple of 128 (320, 33 * 32) at B in {32, 96, 1024}.
+UPDATE_MASK_DENSITIES = (0.0, 0.01, 0.05, 0.07, 0.09, 0.12, 0.3, 1.0)
+UPDATE_RAGGED = [(c, b) for c in (320, 1056) for b in (32, 96, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,b", UPDATE_SHAPES + [(320, 64)])
 def test_closure_update_kernel_matches_plain_on_card(c, b):
+    """B2 as the main path calls it and with every block forced down each
+    of its two paths: closure densities 0 / 5 / 50%, mask densities
+    across the threshold, an all-zero mask, an all-ones closure and
+    block-mixed masks (both paths in one launch)."""
+    from repro_torch.kernels import closure_update
+
     dev = _need_card()
-    for density in (0.0, 0.05, 0.5):
-        args = [t(a, dev) for a in update_inputs(c, b, density)]
-        got = ops.closure_update(*args, impl="cuda")
-        torch.cuda.synchronize()
-        assert torch.equal(got, ops.closure_update(*args, impl="ref")), \
-            f"density {density}"
+    shapes = [(c, b)] + (UPDATE_RAGGED if (c, b) == (320, 64) else [])
+    for cc, bb in shapes:
+        rng = np.random.default_rng(cc * 3 + bb)
+        cases = [(f"closure density {d}", update_inputs(cc, bb, d))
+                 for d in (0.0, 0.05, 0.5)]
+        for md in UPDATE_MASK_DENSITIES:
+            cases.append((f"mask density {md}",
+                          (packed(rng, (cc, cc), 0.01),
+                           packed(rng, (cc, bb), md),
+                           packed(rng, (bb, cc), 0.05))))
+        ones = np.full((cc, cc // 32), 0xFFFFFFFF, dtype=np.uint32)
+        cases.append(("all-ones closure", (ones, packed(rng, (cc, bb), 0.3),
+                                           packed(rng, (bb, cc), 0.3))))
+        cases.append(("block-mixed mask", (packed(rng, (cc, cc), 0.01),
+                                           block_mixed(rng, cc, bb),
+                                           packed(rng, (bb, cc), 0.25))))
+        sparse, dense = forced_paths(cc, dev)
+        for label, arrays in cases:
+            label = f"C={cc} B={bb}, {label}"
+            args = [t(a, dev) for a in arrays]
+            want = ops.closure_update(*args, impl="ref")
+            before = ops.LAUNCHES["closure_update"]
+            got = ops.closure_update(*args, impl="cuda")
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["closure_update"] == before + 1, label
+            assert torch.equal(got, want), label
+            for path, work in (("sparse", sparse), ("dense", dense)):
+                assert torch.equal(
+                    closure_update.closure_update_paths(*args, work),
+                    want), f"{label}, every block {path}"
 
 
 @pytest.mark.cuda
@@ -255,3 +292,12 @@ def test_kernel_wrappers_reject_bad_operands_on_card():
         ops.bitmm_packed(lhs.t(), lhs)
     with pytest.raises(ValueError, match="rows"):
         ops.bitmm_packed(lhs, rhs[:128])
+    from repro_torch.kernels import closure_update
+
+    closure, mask, rows = (t(a, dev) for a in update_inputs(320, 64, 0.05))
+    short = torch.zeros(2, dtype=torch.int32, device=dev)   # needs 3
+    with pytest.raises(ValueError, match="work must hold 3"):
+        closure_update.closure_update_paths(closure, mask, rows, short)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        closure_update.closure_update_paths(closure, mask.cpu(), rows,
+                                            forced_paths(320, dev)[0])
