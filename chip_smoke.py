@@ -132,6 +132,36 @@ non-zero:
                   ms); peak memory and the top device kernels of one
                   profiled forward (B6's share) and of one profiled query.
                   Logits and scores finite.
+  8. replication — (a) a `replica.Primary` writer on the card and on the
+                  CPU, eager and defer_flush + jit, over the delheavy and
+                  steady streams at C=2048, B=256, 8 ticks: the two logs
+                  equal entry for entry, CRC for CRC; two replicas on the
+                  card replay the card's log to the CPU writer's
+                  adjacency and closure bit for bit.  (b) The dense main
+                  path's steady and delheavy streams (C=16384, B=1024, 10
+                  ticks) through a defer_flush + jit writer ("auto"), two
+                  replicas replaying each tick's entries: writer tick ms,
+                  replay ms an entry, the replay's B2 / B3 launches,
+                  convergence; a checkpoint after tick 5 plus
+                  save_delta_log of the whole log, recovered by
+                  recover_replica and converged bit for bit (save and
+                  recovery ms); serve_sgt_replicated reads/s from 0 and 2
+                  snapshot readers (row_products == 0).  (c) The tiled
+                  main path's mixed stream (C=131072, B=128, 10 ticks,
+                  "incremental") the same way: the replay's B4 / B5
+                  launches, convergence, and 1024 replica reads equal to
+                  the engine's.  (d) serve_chaos on every named fault
+                  plan, seed 11, C=2048, B=256, 10 ticks, on the card and
+                  on the CPU: wrong_answers == 0, the same counters.  (e)
+                  The front-end at C=16384 with batch 64, a 2 ms wait and
+                  2 replicas: the rate with every tick full (a burst),
+                  one profiled tick (launches, device busy; and the same
+                  tick at subbatches=1, for its cost only), then
+                  serve_frontend with the snapshot and the replica reader
+                  at 25% and 80% of that rate, 4 s each: p50, p99, shed,
+                  row_products.  (b) and (c) also profile one replay of
+                  the last tick's entries.  The replay's launches of B2-B5 are added
+                  to the kernels line's counts.
 The line before the last is the per-kernel JSON record, the last line
 the device record.  Imports only the port, torch and numpy.
 """
@@ -1843,6 +1873,436 @@ def phase_recsys():
     return launches
 
 
+# -------------------------------------------------------- 8. replication
+
+REP_TICKS = 10                  # ticks of each replicated stream
+REP_REPLICAS = 2
+FE_BATCH, FE_WAIT_S = 64, 0.002   # benchmarks/openloop.py (run_openloop's)
+FE_DURATION_S = 4.0             # ~10 ticks at 25% of the saturated rate
+CHAOS_C, CHAOS_B, CHAOS_TICKS, CHAOS_SEED = 2048, 256, 10, 11
+REPLAY_KERNELS = ("closure_update", "closure_delete", "closure_update_tiled",
+                  "closure_delete_tiled")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profiled_call(fn, device: str = "cuda") -> dict:
+    """One call of ``fn`` under torch.profiler: wall ms (profiler on),
+    device-busy ms, kernel launches, copies and the device kernels with
+    the most launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_ticks import _device_us
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in on_device) / 1e3
+    top = sorted(on_device, key=lambda e: -e.count)[:4]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "launches": sum(e.count for e in events
+                            if e.key == "cudaLaunchKernel"),
+            "copies": sum(e.count for e in events
+                          if e.key in ("cudaMemcpyAsync", "cudaMemcpy")),
+            "top": "; ".join(f"{e.key[:40]} x{e.count}" for e in top)}
+
+
+def _profile_line(r: dict) -> str:
+    return (f"wall {r['wall_ms']:.3f} ms (profiler on), device busy "
+            f"{r['busy_ms']:.3f} ms, idle share "
+            f"{1 - r['busy_ms'] / r['wall_ms']:.3f}, {r['launches']} kernel "
+            f"launches, {r['copies']} copies; most launched: {r['top']}")
+
+
+def _new_entries(p, cursor: int):
+    """(the log entries ``p`` shipped since ``cursor``, the new cursor),
+    after flushing what is staged."""
+    p.flush()
+    return p.log[cursor:], len(p.log)
+
+
+def _same_entries(a, b, what: str) -> None:
+    check(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} log entries")
+    for x, y in zip(a, b):
+        check((x.epoch, x.grow_to, x.prev_epoch, x.crc)
+              == (y.epoch, y.grow_to, y.prev_epoch, y.crc),
+              f"{what}: log entry ({x.epoch}, {x.crc:#010x}) vs "
+              f"({y.epoch}, {y.crc:#010x})")
+        for f, u, v in zip(type(x.delta)._fields, x.delta, y.delta):
+            check(u.dtype == v.dtype and np.array_equal(u, v),
+                  f"{what}: epoch {x.epoch} delta.{f} differs")
+
+
+def replication_parity(capacity: int = C_PARITY, batch: int = B_PARITY,
+                       ticks: int = T_PARITY, device: str = "cuda") -> None:
+    """(a) The writer's log on ``device`` equals the CPU's entry for entry,
+    CRC for CRC (eager and defer_flush + jit; the delheavy and steady
+    streams), and two replicas on ``device`` replay it to the CPU writer's
+    adjacency and closure, bit for bit."""
+    from repro_torch.core import closure_cache
+    from repro_torch.launch import serve
+    from repro_torch.replica import Primary, Replica
+
+    streams = {
+        "delheavy": (serve.primary_churn_tick, "incremental",
+                     serve._sgt_churn_inputs(capacity, batch, ticks, 0,
+                                             "delheavy")),
+        "steady": (serve.primary_steady_tick, "auto",
+                   serve._sgt_tick_inputs(capacity, batch, ticks, 0))}
+    for name, (tick, method, inputs) in streams.items():
+        for mode, opts in (("eager", {}),
+                           ("defer_flush+jit", {"defer_flush": True,
+                                                "jit": True})):
+            prims = {d: Primary.create(capacity, method=method, device=d,
+                                       **opts) for d in (device, "cpu")}
+            reps = [Replica.from_engine(prims[device].engine)
+                    for _ in range(REP_REPLICAS)]
+            cursors = {d: 0 for d in prims}
+            t0 = time.perf_counter()
+            for xs in inputs:
+                new = {}
+                for d, p in prims.items():
+                    tick(p, serve.on_device(d, xs))
+                    new[d], cursors[d] = _new_entries(p, cursors[d])
+                _same_entries(new[device], new["cpu"], f"{name} {mode}")
+                reps = [r.replay(new[device]) for r in reps]
+            host = prims["cpu"].engine.refresh_cache()
+            for r in reps:
+                check(r.epoch == host.epoch, f"{name} {mode}: replica epoch")
+                check(torch.equal(r.adj.cpu(), host.state.adj)
+                      and torch.equal(
+                          closure_cache.dense_of(r.closure).cpu(),
+                          closure_cache.dense_of(host.cache.closure)),
+                      f"{name} {mode}: a replica on the card differs from "
+                      "the CPU writer")
+                check(r.converged_with(prims[device].engine),
+                      f"{name} {mode}: a replica did not converge")
+            say("replication", f"(a) {name} {mode}: {len(prims[device].log)} "
+                f"log entries at C={capacity} B={batch} identical on the "
+                f"card and the CPU, CRC for CRC; {REP_REPLICAS} replicas on "
+                f"the card equal the CPU writer's adjacency and closure "
+                f"(epoch {host.epoch}, {time.perf_counter() - t0:.1f}s)")
+
+
+def replicated_run(tick, inputs, capacity: int, method: str, device: str,
+                   ckpt_dir=None, ckpt_at=None, **layout) -> dict:
+    """A ``Primary(defer_flush=True, jit=True)`` writer on ``device`` over
+    ``inputs``, with ``REP_REPLICAS`` replicas replaying each tick's
+    entries.  Returns the writer, the replicas, per-entry replay times
+    and the replay's launches (a snapshot diff of the counters around
+    each replay).  With ``ckpt_dir`` the writer checkpoints after tick
+    ``ckpt_at``."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.replica import Primary, Replica
+
+    p = Primary.create(capacity, method=method, device=device,
+                       defer_flush=True, jit=True, **layout)
+    reps = [Replica.from_engine(p.engine) for _ in range(REP_REPLICAS)]
+    replay_launches = {k: 0 for k in REPLAY_KERNELS}
+    writer_s, replay_s, n_entries, ckpt_s, cursor = [], [], 0, None, 0
+    for t, xs in enumerate(inputs):
+        t0 = time.perf_counter()
+        tick(p, serve.on_device(device, xs))
+        new, cursor = _new_entries(p, cursor)
+        _sync(device)
+        writer_s.append(time.perf_counter() - t0)
+        before_tick = reps[0]
+        for i in range(len(reps)):
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            reps[i] = reps[i].replay(new)
+            _sync(device)
+            replay_s.append(time.perf_counter() - t0)
+            for k in replay_launches:
+                replay_launches[k] += ops.LAUNCHES[k] - before[k]
+        n_entries += len(new)
+        last = (before_tick, new)
+        if ckpt_dir is not None and t == ckpt_at:
+            t0 = time.perf_counter()
+            p.checkpoint(ckpt_dir)
+            ckpt_s = time.perf_counter() - t0
+    # the last tick's replay once more (replicas are immutable: the same
+    # work from the same state), under the profiler, outside the counts
+    rep0, entries = last
+    counts = dict(ops.LAUNCHES)
+    prof = _profiled_call(lambda: rep0.replay(entries), device)
+    ops.LAUNCHES.update(counts)
+    return {"primary": p, "replicas": reps, "writer_s": writer_s,
+            "replay_s": replay_s, "entries": n_entries,
+            "replay_launches": replay_launches, "ckpt_s": ckpt_s,
+            "replay_profile": prof, "last_entries": len(entries)}
+
+
+def replication_dense(capacity: int = C_FULL, batch: int = B_FULL,
+                      ticks: int = REP_TICKS, device: str = "cuda",
+                      reads: int = 512):
+    """(b) The dense main path's steady and delheavy streams through a
+    replicated writer; the snapshot reads of `serve_sgt_replicated`; a
+    checkpoint + log tail recovered bit for bit.  Returns the replay's
+    launches."""
+    import os
+    import tempfile
+
+    from repro_torch.core.engine import DagEngine
+    from repro_torch.launch import serve
+    from repro_torch.replica import (load_delta_log, recover_replica,
+                                     save_delta_log)
+
+    total = {k: 0 for k in REPLAY_KERNELS}
+    runs = {"steady": (serve.primary_steady_tick,
+                       serve._sgt_tick_inputs(capacity, batch, ticks, 0)),
+            "delheavy": (serve.primary_churn_tick,
+                         serve._sgt_churn_inputs(capacity, batch, ticks, 0,
+                                                 "delheavy"))}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        for name, (tick, inputs) in runs.items():
+            ckpt_dir = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            run, launches = _launches_of(lambda: replicated_run(
+                tick, inputs, capacity, "auto", device, ckpt_dir=ckpt_dir,
+                ckpt_at=ticks // 2 - 1))
+            p, reps = run["primary"], run["replicas"]
+            for k in total:
+                total[k] += run["replay_launches"][k]
+            for r in reps:
+                check(r.converged_with(p.engine),
+                      f"dense {name}: a replica did not converge")
+            per_entry = sum(run["replay_s"]) * 1e3 / (
+                run["entries"] * len(reps))
+            rep_bytes = sum(x.numel() * x.element_size()
+                            for x in (reps[0].adj, reps[0].closure))
+            say("replication", f"(b) dense {name} C={capacity} B={batch}, "
+                f"{ticks} ticks: writer median tick "
+                f"{np.median(run['writer_s']) * 1e3:.3f} ms (defer_flush + "
+                f"jit, flush included); {run['entries']} entries, replay "
+                f"{per_entry:.3f} ms an entry a replica (median tick a "
+                f"replica {np.median(run['replay_s']) * 1e3:.3f} ms); "
+                f"{len(reps)} replicas of {rep_bytes / 2**20:.0f} MiB each "
+                f"converged; replay launches {run['replay_launches']}; the "
+                f"whole run's launches {launches} "
+                f"({time.perf_counter() - t0:.1f}s)")
+            say("replication", f"(b) dense {name}: one profiled replay of "
+                f"the last tick's {run['last_entries']} entries: "
+                + _profile_line(run["replay_profile"]))
+            check(run["replay_launches"]["closure_update"] > 0,
+                  f"dense {name}: the replay never launched B2")
+            if name == "delheavy":
+                check(run["replay_launches"]["closure_delete"] > 0,
+                      "dense delheavy: the replay never launched B3")
+            # the checkpoint (taken mid-run) + the whole log -> recovery
+            log_path = os.path.join(tmp, f"{name}.log")
+            t0 = time.perf_counter()
+            save_delta_log(log_path, p.log)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            like = DagEngine.create(capacity, method="auto", device=device)
+            t0 = time.perf_counter()
+            rec = recover_replica(ckpt_dir, like, load_delta_log(log_path))
+            _sync(device)
+            rec_ms = (time.perf_counter() - t0) * 1e3
+            check(rec.converged_with(p.engine),
+                  f"dense {name}: recovery did not converge")
+            step = os.listdir(ckpt_dir)[0]
+            ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, step,
+                                                      "arrays.npz"))
+            say("replication", f"(b) dense {name}: checkpoint after tick "
+                f"{ticks // 2} ({step}, {ckpt_bytes} bytes) "
+                f"{run['ckpt_s'] * 1e3:.1f} ms; save_delta_log of "
+                f"{len(p.log)} entries ({os.path.getsize(log_path)} bytes) "
+                f"{save_ms:.1f} ms; recover_replica (restore + replay of the "
+                f"tail) {rec_ms:.1f} ms, converged bit for bit")
+            del run, p, reps, rec
+    for r in (0, REP_REPLICAS):
+        out = serve.serve_sgt_replicated(capacity=capacity, batch=batch,
+                                         ticks=ticks, replicas=r,
+                                         reads=reads, device=device)
+        check(r == 0 or out["row_products"] == 0,
+              "snapshot reads did row products")
+        say("replication", f"(b) serve_sgt_replicated C={capacity} "
+            f"B={batch} replicas={r}: {out['ops_per_s']:.0f} reads/s "
+            f"(median tick of {reads * max(1, r)} reads), best "
+            f"{out['best_ops_per_s']:.0f}, row_products="
+            f"{out['row_products']}")
+    return total
+
+
+def replication_tiled(capacity: int = C_TILED, batch: int = B_TILED,
+                      ticks: int = T_TILED, device: str = "cuda",
+                      n_reads: int = 1024):
+    """(c) The tiled main path's mixed churn stream through a replicated
+    writer; replicas replay through B4 / B5, converge, and read like the
+    engine.  Returns the replay's launches."""
+    from repro_torch.core import closure_cache
+    from repro_torch.core import dag as dag_mod
+    from repro_torch.launch import serve
+
+    inputs = serve._sgt_churn_inputs(capacity, batch, ticks, 0, "mixed")
+    t0 = time.perf_counter()
+    run, launches = _launches_of(lambda: replicated_run(
+        serve.primary_churn_tick, inputs, capacity, "incremental", device,
+        closure_layout="tiled"))
+    p, reps = run["primary"], run["replicas"]
+    eng = p.engine
+    for r in reps:
+        check(r.converged_with(eng),
+              f"tiled C={capacity}: a replica did not converge")
+    live = eng.state.keys[eng.state.alive].cpu().numpy()
+    gen = np.random.default_rng(1)
+    pool = live if live.size else np.arange(capacity, dtype=np.int32)
+    fk, tk = (torch.as_tensor(gen.choice(pool, n_reads), dtype=torch.int32,
+                              device=device) for _ in range(2))
+    want = eng.reachable(fk, tk)
+    fs, ff = dag_mod.lookup_slots(eng.state, fk)
+    ts, tf = dag_mod.lookup_slots(eng.state, tk)
+    for r in reps:
+        check(torch.equal(r.reachable_slots(fs, ts) & ff & tf, want),
+              f"tiled C={capacity}: replica reads differ from the engine's")
+    per_entry = sum(run["replay_s"]) * 1e3 / (run["entries"] * len(reps))
+    rep_bytes = reps[0].adj.numel() * 4 + closure_cache.closure_nbytes(
+        reps[0].closure)
+    say("replication", f"(c) tiled mixed C={capacity} B={batch}, {ticks} "
+        f"ticks: writer median tick {np.median(run['writer_s']) * 1e3:.3f} "
+        f"ms; {run['entries']} entries, replay {per_entry:.3f} ms an entry "
+        f"a replica; window {reps[0].closure.region}; {len(reps)} replicas "
+        f"of {rep_bytes} bytes each converged, {n_reads} reads equal the "
+        f"engine's "
+        f"({int(want.sum())} hits); replay launches "
+        f"{run['replay_launches']}; the whole run's launches {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    say("replication", f"(c) tiled: one profiled replay of the last "
+        f"tick's {run['last_entries']} entries: "
+        + _profile_line(run["replay_profile"]))
+    check(run["replay_launches"]["closure_update_tiled"] > 0
+          and run["replay_launches"]["closure_delete_tiled"] > 0,
+          f"the tiled replay did not launch B4 and B5: "
+          f"{run['replay_launches']}")
+    return dict(run["replay_launches"])
+
+
+def replication_chaos(device: str = "cuda", plans=None) -> None:
+    """(d) `serve_chaos` on every named plan at seed 11, on the card and on
+    the CPU: no wrong answer, the same counters."""
+    import tempfile
+
+    from repro_torch.ft.faults import NAMED_PLANS
+    from repro_torch.launch import serve
+
+    for plan in plans or sorted(NAMED_PLANS):
+        outs = {}
+        for d in (device, "cpu"):
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as w:
+                outs[d] = serve.serve_chaos(
+                    capacity=CHAOS_C, batch=CHAOS_B, ticks=CHAOS_TICKS,
+                    fault_seed=CHAOS_SEED, fault_plan=plan, replicas=2,
+                    seed=CHAOS_SEED, workdir=w, device=d)
+            outs[d]["s"] = time.perf_counter() - t0
+        s = {d: outs[d].pop("s") for d in outs}
+        check(outs[device]["wrong_answers"] == 0,
+              f"chaos {plan}: wrong answers on the card")
+        check(outs[device] == outs["cpu"],
+              f"chaos {plan}: card {outs[device]} vs CPU {outs['cpu']}")
+        say("replication", f"(d) chaos {plan} seed {CHAOS_SEED} "
+            f"C={CHAOS_C} B={CHAOS_B}: {outs[device]} on the card equals "
+            f"the CPU's ({s[device]:.1f}s card, {s['cpu']:.1f}s CPU)")
+
+
+def _frontend_burst_rate(capacity: int, device: str, n: int):
+    """(requests/s of the front-end when every tick is full, the
+    front-end): ``n`` requests of the open-loop mix queued at once."""
+    import asyncio
+
+    from repro_torch.serve import Frontend, FrontendConfig
+    from repro_torch.serve.openloop import request_stream
+
+    fe = Frontend.create(capacity, FrontendConfig(
+        batch_size=FE_BATCH, max_wait_s=FE_WAIT_S), device=device)
+    fe.warmup()
+    reqs = request_stream(n, 1, key_hi=capacity // 2)
+
+    async def go():
+        async with fe:
+            await asyncio.gather(*[fe.submit(k, a, b, tenant=t)
+                                   for k, a, b, t in reqs])
+
+    t0 = time.perf_counter()
+    asyncio.run(go())
+    return n / (time.perf_counter() - t0), fe
+
+
+def replication_frontend(capacity: int = C_FULL, device: str = "cuda",
+                         duration: float = FE_DURATION_S) -> None:
+    """(e) `serve_frontend` with `benchmarks/openloop.py`'s batch, wait and
+    replicas at the dense capacity: the saturated rate measured first
+    (every tick full), then the snapshot and the replica reader at 25% and
+    80% of it; one profiled front-end tick (launches, device busy)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve import Request
+    from repro_torch.serve.openloop import request_stream
+
+    rate, fe = _frontend_burst_rate(capacity, device, 16 * FE_BATCH)
+    say("replication", f"(e) front-end C={capacity} batch {FE_BATCH}: "
+        f"{rate:.0f} requests/s with every tick full "
+        f"({fe.stats['ticks']} ticks of {FE_BATCH}); subbatches="
+        f"{fe.primary.engine.config.subbatches}")
+    # one profiled tick of a full batch of the open-loop mix; then the
+    # same tick from the same state with subbatches=1 (the paper's
+    # joint-abort mode: not the front end's semantics, for its cost only)
+    batch = [Request(k, a, b, t, None, 0.0) for k, a, b, t in
+             request_stream(FE_BATCH, 2, key_hi=capacity // 2)]
+    kinds = {k: sum(r.kind == k for r in batch) for k in
+             ("add_edge", "add_vertex", "remove_edge", "remove_vertex",
+              "reachable")}
+    engine = fe.primary.engine
+    prof = _profiled_call(lambda: fe._commit_sync(batch), device)
+    say("replication", f"(e) one profiled front-end tick ({kinds}), "
+        f"subbatches={FE_BATCH}: " + _profile_line(prof))
+    fe.primary.engine = engine.with_options(subbatches=1)
+    prof = _profiled_call(lambda: fe._commit_sync(batch), device)
+    say("replication", "(e) the same tick at subbatches=1 (joint aborts; "
+        "for the cost only): " + _profile_line(prof))
+    del fe
+    for reader in ("snapshot", "replica"):
+        for share in (0.25, 0.8):
+            out = serve.serve_frontend(
+                load=share * rate, duration=duration, capacity=capacity,
+                batch=FE_BATCH, reader=reader, replicas=REP_REPLICAS,
+                device=device)
+            check(out["row_products"] == 0, "front-end reads did products")
+            say("replication", f"(e) serve_frontend {reader} at "
+                f"{share:.0%} of the saturated rate ({share * rate:.0f} "
+                f"req/s offered, {duration:.1f}s): p50 "
+                f"{out['p50_us'] / 1e3:.3f} ms, p99 {out['p99_us'] / 1e3:.3f} "
+                f"ms, {out['ops_per_s']:.0f} req/s served, "
+                f"{out['n_served']} served, {out['n_shed']} shed, "
+                f"{out['ticks']} ticks, row_products={out['row_products']}")
+
+
+def phase_replication():
+    """Phase 8 (a)-(e).  Returns the replay's launches of B2-B5."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    replication_parity()
+    total = replication_dense()
+    for k, v in replication_tiled().items():
+        total[k] += v
+    replication_chaos()
+    replication_frontend()
+    say("replication", f"replay launches {total}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1858,6 +2318,8 @@ def main() -> int:
     launches = phase_main_path()
     launches["flash_attention"] = phase_lm()["flash_attention"]
     launches["embbag"] = phase_recsys()["embbag"]
+    for k, v in phase_replication().items():
+        launches[k] += v
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

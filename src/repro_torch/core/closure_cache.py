@@ -311,6 +311,13 @@ class CacheDelta(NamedTuple):
                 torch.zeros((0,), dtype=torch.bool, device=like.device))
 
     @classmethod
+    def empty(cls, device="cpu") -> "CacheDelta":
+        """The delta of a mutation that touched no adjacency bit (vertex
+        adds, growth)."""
+        e, m = cls._none(torch.empty((0,), device=device))
+        return cls(e, e, m, e, e, m, e, m)
+
+    @classmethod
     def edges_added(cls, u_slots, v_slots, mask) -> "CacheDelta":
         e, m = cls._none(u_slots)
         return cls(u_slots, v_slots, mask, e, e, m, e, m)

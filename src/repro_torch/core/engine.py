@@ -619,11 +619,16 @@ class DagEngine:
     def remove_vertices(self, keys, valid=None):
         """RemoveVertex batch (incident edges cleared in-step) -> (engine,
         OpResult); the removal commits a typed `CacheDelta`."""
+        return self.remove_vertices_with_delta(keys, valid)[:2]
+
+    def remove_vertices_with_delta(self, keys, valid=None):
+        """`remove_vertices` -> (engine, OpResult, the committed
+        `CacheDelta`): the replication log's record of the call."""
         state, ok, delta = dag_mod.remove_vertices_delta(
             self.state, self._keys(keys), valid=valid)
         cache, stats = self._commit_cache(state, delta)
         res = OpResult(ok, self._overflow_delta(state), stats)
-        return self._with_state(state, cache), res
+        return self._with_state(state, cache), res, delta
 
     # -------------------------------------------------------- edge ops
 
@@ -655,11 +660,16 @@ class DagEngine:
     def remove_edges(self, us, vs, valid=None):
         """RemoveEdge batch -> (engine, OpResult); commits an adj-diff
         exact `CacheDelta`."""
+        return self.remove_edges_with_delta(us, vs, valid)[:2]
+
+    def remove_edges_with_delta(self, us, vs, valid=None):
+        """`remove_edges` -> (engine, OpResult, the committed
+        `CacheDelta`): the replication log's record of the call."""
         state, ok, delta = dag_mod.remove_edges_delta(
             self.state, self._keys(us), self._keys(vs), valid=valid)
         cache, stats = self._commit_cache(state, delta)
         res = OpResult(ok, self._overflow_delta(state), stats)
-        return self._with_state(state, cache), res
+        return self._with_state(state, cache), res, delta
 
     # ------------------------------------------------- wait-free reads
 

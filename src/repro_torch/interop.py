@@ -10,6 +10,9 @@ words cross as int32 arrays holding the uint32 bit pattern (a ``uint32``
 array is taken with ``.view(np.int32)``).  The caller flattens and
 rebuilds the JAX side with numpy; this module never imports JAX.
 
+Replication log entries and their deltas cross as numpy arrays of the
+reference's dtypes (`log_entry_to_arrays`, `log_entry_from_arrays`).
+
 LM and xDeepFM params cross as the reference's param tree of numpy
 arrays (see `lm_params_from_arrays`, `xdeepfm_params_from_arrays`).  A JAX bfloat16 array becomes a numpy array
 of the ``ml_dtypes`` bfloat16 type, which ``torch.from_numpy`` rejects;
@@ -22,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.closure_cache import ClosureCache, TiledClosure
+from repro_torch.core.closure_cache import (CacheDelta, ClosureCache,
+                                           TiledClosure)
 from repro_torch.core.dag import DagState
 from repro_torch.core.engine import DagEngine, resolve_device
 
@@ -46,23 +50,30 @@ def engine_from_arrays(arrays: dict, config_kwargs: dict | None = None,
     keywords; the capacity, and on the tiled layout the window, are the
     leaves')."""
     tiled = "cache.closure.tiles" in arrays
-    names = TILED_LEAVES if tiled else LEAVES
-    missing = [k for k in names if k not in arrays]
-    if missing:
-        raise KeyError(f"missing engine leaves: {missing}")
-    keys = np.asarray(arrays["keys"])
     kwargs = dict(config_kwargs or {})
     if tiled:
         kwargs.update(closure_layout="tiled", closure_region=int(
             np.asarray(arrays["cache.closure.tiles"]).shape[0]))
-    eng = DagEngine.create(int(keys.shape[0]), device=device, **kwargs)
-    dev = eng.device
+    eng = DagEngine.create(int(np.asarray(arrays["keys"]).shape[0]),
+                           device=device, **kwargs)
+    return engine_of_leaves(arrays, eng.config)
+
+
+def engine_of_leaves(arrays: dict, config) -> DagEngine:
+    """An engine with ``config`` (its capacity, layout and device) holding
+    the leaves in ``arrays``; packed words may be int32 or uint32."""
+    tiled = "cache.closure.tiles" in arrays
+    names = TILED_LEAVES if tiled else LEAVES
+    missing = [k for k in names if k not in arrays]
+    if missing:
+        raise KeyError(f"missing engine leaves: {missing}")
+    dev = config.device
 
     def on(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
     state = DagState(
-        keys=on(keys.astype(np.int32), torch.int32),
+        keys=on(np.asarray(arrays["keys"]).astype(np.int32), torch.int32),
         alive=on(np.asarray(arrays["alive"], bool), torch.bool),
         adj=on(_words(arrays["adj"]), torch.int32),
         n_overflow=on(np.asarray(arrays["n_overflow"], np.int32),
@@ -79,7 +90,7 @@ def engine_from_arrays(arrays: dict, config_kwargs: dict | None = None,
                         ).reshape(()))
     depth_ema = torch.as_tensor(np.array(arrays["depth_ema"], np.float32)
                                 ).reshape(-1)
-    return DagEngine(state, depth_ema, cache, eng.config,
+    return DagEngine(state, depth_ema, cache, config,
                      int(np.asarray(arrays["epoch"])))
 
 
@@ -102,6 +113,37 @@ def engine_to_arrays(engine: DagEngine) -> dict:
                 "cache.repair_ema": cache.repair_ema.cpu().numpy(),
                 "epoch": np.asarray(engine.epoch, np.int32)})
     return out
+
+
+def delta_to_arrays(delta) -> dict:
+    """A `CacheDelta` (the port's or the reference's; tensors or arrays)
+    as {field: numpy array}, with the reference's host dtypes."""
+    from repro_torch.replica import _host_delta
+    return dict(zip(CacheDelta._fields, _host_delta(CacheDelta(*delta))))
+
+
+def delta_from_arrays(arrays: dict) -> CacheDelta:
+    """The port's host `CacheDelta` (numpy int32 slots, bool masks) from
+    {field: array}."""
+    from repro_torch.replica import _host_delta
+    return _host_delta(CacheDelta(*[arrays[k] for k in CacheDelta._fields]))
+
+
+def log_entry_to_arrays(entry) -> dict:
+    """A replication `LogEntry` (the port's or the reference's) as
+    {"epoch", "grow_to", "prev_epoch", "crc": ints, "delta": {field:
+    numpy array}} — the form both packages build their entries from."""
+    return {"epoch": int(entry.epoch), "grow_to": int(entry.grow_to),
+            "prev_epoch": int(entry.prev_epoch), "crc": int(entry.crc),
+            "delta": delta_to_arrays(entry.delta)}
+
+
+def log_entry_from_arrays(arrays: dict):
+    """The port's `replica.LogEntry` from `log_entry_to_arrays`' form."""
+    from repro_torch.replica import LogEntry
+    return LogEntry(int(arrays["epoch"]), int(arrays["grow_to"]),
+                    delta_from_arrays(arrays["delta"]),
+                    int(arrays["prev_epoch"]), int(arrays["crc"]))
 
 
 def _tensor_of(arr, device) -> torch.Tensor:

@@ -4,13 +4,16 @@ Port of `repro.launch.serve`'s SGT half — the paper's end-to-end
 application, an SGT transaction scheduler serving batched
 begin / conflict / finish requests on the concurrent acyclic DAG, with
 the reference's deterministic numpy request streams, so the same seed
-gives the same workload in both packages — and of its LM mode
-(`serve_lm`: prefill, then greedy decode).
+gives the same workload in both packages — with its replicated-read,
+front-end and chaos profiles, and of its LM mode (`serve_lm`: prefill,
+then greedy decode).
 
     python -m repro_torch.launch.serve --profile delheavy \\
         --capacity 16384 --batch 1024
     python -m repro_torch.launch.serve --mode lm --arch qwen2-1.5b \\
         --width full --batch 4
+    python -m repro_torch.launch.serve --profile chaos --capacity 2048 \\
+        --batch 256 --ticks 10 --fault-plan kitchen-sink --fault-seed 11
 
 Runs on the card unless ``--device cpu`` is given.  A tick ends in a
 device synchronisation, so the tick times are wall times of finished
@@ -31,7 +34,8 @@ from repro_torch.core import closure_cache
 from repro_torch.core.dispatch import METHODS, FixedPolicy, validate_choice
 from repro_torch.core.engine import DagEngine, as_compiled, resolve_device
 
-PROFILES = ("steady", "insheavy", "delheavy", "mixed")
+PROFILES = ("steady", "insheavy", "delheavy", "mixed", "paired", "read",
+            "frontend", "chaos")
 
 
 def _sgt_tick_inputs(capacity: int, batch: int, ticks: int, seed: int):
@@ -156,6 +160,26 @@ def churn_tick(eng: DagEngine, xs):
     return eng, (began, conf, rem, fin)
 
 
+def primary_steady_tick(p, xs):
+    """`steady_tick` through a replication writer (`replica.Primary`), so
+    every phase lands in its log.  Returns the four `OpResult`s."""
+    begins, src, dst, fins = xs
+    began = p.add_vertices(begins)
+    conf = p.add_edges_acyclic(src, dst)
+    live = p.engine.contains(src) & p.engine.contains(dst)
+    rem = p.remove_vertices(src, valid=live & ~conf.ok)
+    fin = p.remove_vertices(fins)
+    return began, conf, rem, fin
+
+
+def primary_churn_tick(p, xs):
+    """`churn_tick` through a replication writer (`replica.Primary`).
+    Returns the four `OpResult`s."""
+    begins, src, dst, del_src, del_dst, fins = xs
+    return (p.add_vertices(begins), p.add_edges_acyclic(src, dst),
+            p.remove_edges(del_src, del_dst), p.remove_vertices(fins))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -237,6 +261,31 @@ def _timed(tick, carry, inputs, device):
     return carry, times, outs
 
 
+def _warm_inputs(batch: int):
+    """Dummy inputs of the steady tick's shapes, for an untimed warm-up
+    tick (the kernels build and load there)."""
+    return (np.zeros(batch // 4, np.int32), np.zeros(batch // 2, np.int32),
+            np.zeros(batch // 2, np.int32), np.full(batch // 4, -1, np.int32))
+
+
+def _summarize(label: str, method: str, stats: dict, tick_times, batch: int,
+               ticks: int, dt: float) -> dict:
+    """Throughput from the median tick (and the best tick), as the
+    reference reports it."""
+    med = float(np.median(tick_times))
+    out = {"ticks": ticks, "ops_per_s": batch / med,
+           "best_ops_per_s": batch / float(min(tick_times)),
+           "tick_us": med * 1e6,
+           "abort_rate": float(stats["aborted"] / max(1, stats["begun"])),
+           **stats}
+    print(f"[{label}:{method}] {batch * ticks} ops in {dt:.2f}s -> "
+          f"{out['ops_per_s']:.0f} ops/s (median tick); "
+          f"began={out['begun']} committed={out['committed']} "
+          f"aborted={out['aborted']} (abort rate {out['abort_rate']:.3f}, "
+          f"depth_ema {out['depth_ema']:.2f})")
+    return out
+
+
 def serve_sgt(capacity: int = 1024, batch: int = 256, ticks: int = 50,
               subbatches: int = 1, seed: int = 0, method: str = "auto",
               api: str = "sgt", auto_grow: bool = False,
@@ -253,9 +302,7 @@ def serve_sgt(capacity: int = 1024, batch: int = 256, ticks: int = 50,
     carry, step, finalize = driver(capacity, subbatches, method, device,
                                    auto_grow=auto_grow)
     inputs = _sgt_tick_inputs(capacity, batch, ticks, seed)
-    warm = (np.zeros(batch // 4, np.int32), np.zeros(batch // 2, np.int32),
-            np.zeros(batch // 2, np.int32), np.full(batch // 4, -1, np.int32))
-    step(carry, on_device(device, warm))
+    step(carry, on_device(device, _warm_inputs(batch)))
     _sync(device)
 
     def tick(c, xs):
@@ -264,19 +311,46 @@ def serve_sgt(capacity: int = 1024, batch: int = 256, ticks: int = 50,
     t0 = time.perf_counter()
     carry, tick_times, _ = _timed(tick, carry, inputs, device)
     dt = time.perf_counter() - t0
-    stats = finalize(carry)
-    med = float(np.median(tick_times))
-    out = {"ticks": ticks, "ops_per_s": batch / med,
-           "best_ops_per_s": batch / float(min(tick_times)),
-           "tick_us": med * 1e6,
-           "abort_rate": float(stats["aborted"] / max(1, stats["begun"])),
-           **stats}
-    print(f"[{label}:{method}] {batch * ticks} ops in {dt:.2f}s -> "
-          f"{out['ops_per_s']:.0f} ops/s (median tick); "
-          f"began={out['begun']} committed={out['committed']} "
-          f"aborted={out['aborted']} (abort rate {out['abort_rate']:.3f}, "
-          f"depth_ema {out['depth_ema']:.2f})")
-    return out
+    return _summarize(label, method, finalize(carry), tick_times, batch,
+                      ticks, dt)
+
+
+def serve_sgt_paired(capacity: int = 1024, batch: int = 256,
+                     ticks: int = 50, subbatches: int = 1, seed: int = 0,
+                     method: str = "auto", device=None):
+    """Run the `core/sgt` surface and the raw `DagEngine` session
+    TICK-INTERLEAVED on the identical request stream and return
+    (out_sgt, out_engine).  Each tick pair runs back to back under the
+    same host contention, so the two paths' median ticks compare inside
+    one call (two separate calls can land on different hosts)."""
+    device = resolve_device(device)
+    c_sgt, step_sgt, fin_sgt = _sgt_driver(capacity, subbatches, method,
+                                           device)
+    c_eng, step_eng, fin_eng = _engine_driver(capacity, subbatches, method,
+                                              device)
+    inputs = _sgt_tick_inputs(capacity, batch, ticks, seed)
+    warm = on_device(device, _warm_inputs(batch))
+    step_sgt(c_sgt, warm)
+    step_eng(c_eng, warm)
+    _sync(device)
+    t_sgt, t_eng = [], []
+    for xs in inputs:
+        xs = on_device(device, xs)
+        t1 = time.perf_counter()
+        c_sgt = step_sgt(c_sgt, xs)
+        _sync(device)
+        t2 = time.perf_counter()
+        c_eng = step_eng(c_eng, xs)
+        _sync(device)
+        t3 = time.perf_counter()
+        t_sgt.append(t2 - t1)
+        t_eng.append(t3 - t2)
+    # each path's printed wall time is ITS OWN ticks' sum
+    out_sgt = _summarize("serve-sgt", method, fin_sgt(c_sgt), t_sgt,
+                         batch, ticks, sum(t_sgt))
+    out_eng = _summarize("serve-sgt-engine", method, fin_eng(c_eng), t_eng,
+                         batch, ticks, sum(t_eng))
+    return out_sgt, out_eng
 
 
 def serve_sgt_insert_heavy(capacity: int = 1024, batch: int = 256,
@@ -371,6 +445,311 @@ def serve_sgt_churn(capacity: int = 1024, batch: int = 256,
     return out
 
 
+def serve_sgt_replicated(capacity: int = 1024, batch: int = 256,
+                         ticks: int = 20, seed: int = 0,
+                         replicas: int = 0, reads: int = 512,
+                         method: str = "incremental", device=None) -> dict:
+    """Read-serving throughput under the writer/reader split.
+
+    One writer applies the steady SGT tick stream — UNTIMED, the same on
+    every row.  The timed region per tick is the read path only:
+
+      ``replicas=0``  one `DagEngine.reachable` batch of ``reads`` queries
+                      against the live engine (the single-engine
+                      baseline);
+      ``replicas=N``  one `DagEngine.snapshot()` take + N independent read
+                      batches of ``reads`` queries answered by
+                      `EngineSnapshot.reachable` (closure bit lookups,
+                      zero row products — asserted at the end).
+
+    ops/s is aggregate reader throughput (``N * reads`` queries a tick).
+    The writer runs method-pinned "incremental" so the closure cache
+    stays clean and the snapshot take is a no-op refresh.  Each tick ends
+    in a device synchronisation."""
+    device = resolve_device(device)
+    eng = DagEngine.create(capacity, method=method, device=device)
+
+    def mutate(e, xs):
+        return steady_tick(e, xs)[0]
+
+    def snap_take(e):
+        with as_compiled():
+            return e.snapshot()
+
+    def eng_read(e, f, t):
+        with as_compiled():
+            return e.reachable(f, t)
+
+    inputs = _sgt_tick_inputs(capacity, batch, ticks, seed)
+    # per-tick read streams: one independent stream per replica (the
+    # baseline serves stream 0), keys drawn from the txns begun so far
+    rng = np.random.default_rng(seed + 7919)
+    n_streams = max(1, replicas)
+    read_batches = []
+    for t in range(ticks):
+        hi = max(2, (t + 1) * (batch // 4))
+        fs = rng.integers(0, hi, (n_streams, reads))
+        ts = rng.integers(0, hi, (n_streams, reads))
+        read_batches.append(on_device(device, (fs, ts)))
+
+    # untimed warm-up of every piece of the timed region
+    zf = torch.zeros(reads, dtype=torch.int32, device=device)
+    mutate(eng, on_device(device, _warm_inputs(batch)))
+    snap_take(eng).reachable(zf, zf)
+    eng_read(eng, zf, zf)
+    _sync(device)
+
+    tick_times = []
+    snap = None
+    last_hits = None
+    t0 = time.perf_counter()
+    for xs, (fs, ts) in zip(inputs, read_batches):
+        eng = mutate(eng, on_device(device, xs))
+        _sync(device)  # writer commit — untimed
+        t1 = time.perf_counter()
+        if replicas == 0:
+            last_hits = [eng_read(eng, fs[0], ts[0])]
+        else:
+            snap = snap_take(eng)
+            last_hits = [snap.reachable(fs[i], ts[i])
+                         for i in range(replicas)]
+        _sync(device)
+        tick_times.append(time.perf_counter() - t1)
+    dt = time.perf_counter() - t0
+
+    row_products = None
+    fs, ts = read_batches[-1]
+    if replicas > 0:
+        # the zero-matmul bar: snapshot reads are closure bit lookups,
+        # and they agree with the live engine they were taken from
+        hit, stats = snap.reachable(fs[0], ts[0], with_stats=True)
+        row_products = int(stats.row_products)
+        assert row_products == 0, \
+            f"snapshot reads did {row_products} row-products (want 0)"
+        assert torch.equal(hit, last_hits[0]), \
+            "snapshot reads disagree with the engine they were taken from"
+        assert torch.equal(hit, eng_read(eng, fs[0], ts[0])), \
+            "snapshot reads disagree with the live engine"
+    ops_per_tick = reads * n_streams
+    med = float(np.median(tick_times))
+    label = f"replicas{replicas}" if replicas else "engine"
+    out = {"ticks": ticks, "replicas": replicas, "reads": reads,
+           "ops_per_s": ops_per_tick / med,
+           "best_ops_per_s": ops_per_tick / float(min(tick_times)),
+           "tick_us": med * 1e6, "row_products": row_products,
+           "epoch": eng.epoch, "engine": eng}
+    print(f"[serve-sgt-read:{label}] {ops_per_tick * ticks} reads in "
+          f"{dt:.2f}s -> {out['ops_per_s']:.0f} reads/s (median tick); "
+          f"best {out['best_ops_per_s']:.0f}"
+          + (f" row_products={row_products}" if row_products is not None
+             else "")
+          + f" epoch={out['epoch']}")
+    return out
+
+
+def serve_frontend(load: float = 1000.0, duration: float = 1.0,
+                   capacity: int = 1024, batch: int = 64,
+                   reader: str = "snapshot", replicas: int = 2,
+                   admission: str = "shed", device=None) -> dict:
+    """Open-loop serving through the asyncio front-end
+    (`repro_torch.serve`): Poisson arrivals at ``load`` requests/s for
+    ``duration`` seconds, coalesced into B-slot ticks, reads answered by
+    snapshots or delta-log replicas; prints the client-observed p50/p99
+    latency."""
+    from repro_torch.serve.openloop import run_openloop
+
+    res = run_openloop(load, duration, capacity=capacity, batch=batch,
+                       reader=reader, replicas=replicas, admission=admission,
+                       device=resolve_device(device))
+    label = "engine" if reader == "snapshot" else f"replicas{replicas}"
+    print(f"[serve-frontend:{label}] offered {res.offered_per_s:.0f} req/s "
+          f"for {duration:.1f}s -> served {res.n_served} "
+          f"(shed {res.n_shed}) in {res.ticks} ticks; p50 "
+          f"{res.p50_us / 1e3:.1f}ms p99 {res.p99_us / 1e3:.1f}ms, "
+          f"achieved {res.ops_per_s:.0f} req/s, "
+          f"row_products={res.row_products} epoch={res.epoch}")
+    return {"p50_us": res.p50_us, "p99_us": res.p99_us,
+            "ops_per_s": res.ops_per_s, "n_served": res.n_served,
+            "n_shed": res.n_shed, "ticks": res.ticks,
+            "row_products": res.row_products, "epoch": res.epoch}
+
+
+def serve_chaos(capacity: int = 256, batch: int = 16, ticks: int = 30,
+                fault_seed: int = 0, fault_plan: str = "kitchen-sink",
+                replicas: int = 2, seed: int = 0,
+                checkpoint_every: int = 5, workdir: str = None,
+                device=None) -> dict:
+    """End-to-end fault-injection replay: one writer + N replicas under a
+    named, seeded `FaultPlan` (`repro_torch.ft.faults.NAMED_PLANS`) — torn
+    log files, bit-rotted checkpoints, lossy/disordered entry shipping,
+    stalls, and crashes inside `Primary.flush`.
+
+    The run asserts the chaos contract: replicas either track
+    the primary exactly or degrade EXPLICITLY (a typed error followed by
+    a resync — counted, never served); a crashed writer restarts from the
+    newest valid base image (corrupt ones are skipped, newer-generation
+    checkpoints are fenced off); disk recovery converges bit for bit with
+    the live primary or refuses with a typed error; and NO reachability
+    read returns a wrong answer.  The same ``fault_seed`` / ``fault_plan``
+    replays the same injections."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.core import dag as dag_mod
+    from repro_torch.ft import all_steps, faults, restore_engine_checkpoint
+    from repro_torch.ft.checkpoint import CorruptCheckpointError
+    from repro_torch.replica import (CorruptLogError, Primary, Replica,
+                                     ReplicaDiverged, load_delta_log,
+                                     recover_replica, save_delta_log)
+
+    logging.basicConfig(level=logging.WARNING)
+    device = resolve_device(device)
+    fp = faults.plan(fault_seed, fault_plan)
+    tmp = workdir or tempfile.mkdtemp(prefix="chaos_")
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    log_path = os.path.join(tmp, "delta.log")
+    rng = np.random.default_rng(seed)
+
+    def new_engine(cap):
+        return DagEngine.create(cap, method="incremental", device=device)
+
+    def fresh_primary(engine=None):
+        if engine is None:
+            engine = new_engine(capacity)
+        return Primary(engine, defer_flush=True, jit=True, fault_plan=fp)
+
+    def restart_primary():
+        """Crash recovery for the writer: newest UNcorrupted base image
+        (or a fresh engine when none exists), with newer-generation
+        checkpoints fenced off — they describe a future the crash lost."""
+        like = new_engine(p.engine.capacity)
+        for s in sorted(all_steps(ckpt_dir), reverse=True):
+            try:
+                eng = restore_engine_checkpoint(ckpt_dir, like, step=s)
+            except CorruptCheckpointError:
+                continue
+            for newer in (x for x in all_steps(ckpt_dir) if x > s):
+                shutil.rmtree(
+                    os.path.join(ckpt_dir, f"step_{newer:08d}"),
+                    ignore_errors=True)
+            return fresh_primary(eng)
+        # no valid base at all: the whole generation is lost — wipe its
+        # artifacts so later recovery never replays against a stale base
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        if os.path.exists(log_path):
+            os.remove(log_path)
+        return fresh_primary()
+
+    def keys(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    p = fresh_primary()
+    reps = [Replica.from_engine(p.engine) for _ in range(replicas)]
+    counters = {"crashes": 0, "resyncs": 0, "stalled_ticks": 0,
+                "degraded_reads": 0, "explicit_errors": 0,
+                "wrong_answers": 0, "reads": 0}
+    pool = capacity // 2
+
+    for t in range(ticks):
+        # ---- mutate: begins + forward conflict edges + some churn ----
+        ks = ((np.arange(batch, dtype=np.int32) + t * batch) % pool)
+        lo = rng.integers(0, pool - 1, batch).astype(np.int32)
+        hi = rng.integers(lo + 1, pool).astype(np.int32)
+        p.add_vertices(keys(ks))
+        p.add_edges_acyclic(keys(lo), keys(hi))
+        if t % 4 == 3:
+            p.remove_edges(keys(lo[: batch // 2]), keys(hi[: batch // 2]))
+        if t == ticks // 3:
+            p.grow(capacity * 2)
+        try:
+            entries = p.flush()
+            if t % checkpoint_every == checkpoint_every - 1:
+                p.checkpoint(ckpt_dir)
+                fp.corrupt_checkpoint(ckpt_dir)
+                save_delta_log(log_path, p.log)
+                fp.corrupt_log_file(log_path)
+        except faults.InjectedCrash:
+            counters["crashes"] += 1
+            p = restart_primary()
+            reps = [r.resync(p.engine) for r in reps]
+            counters["resyncs"] += replicas
+            continue
+
+        # ---- ship to each replica through the lossy channel ----
+        for i in range(replicas):
+            if fp.maybe_stall(site=f"chaos.replica[{i}].tick{t}"):
+                counters["stalled_ticks"] += 1
+                continue  # lagging; the next tick's gap forces a resync
+            ship, _ = fp.perturb_entries(entries,
+                                         site=f"chaos.replica[{i}]")
+            try:
+                reps[i] = reps[i].replay(ship)
+            except (ReplicaDiverged, CorruptLogError):
+                counters["explicit_errors"] += 1
+                reps[i] = reps[i].resync(p.engine)
+                counters["resyncs"] += 1
+
+        # ---- reads: a replica at the primary's epoch, else degraded ----
+        q_u = keys(rng.integers(0, pool, 32).astype(np.int32))
+        q_v = keys(rng.integers(0, pool, 32).astype(np.int32))
+        want = p.engine.reachable(q_u, q_v)
+        current = [r for r in reps if r.epoch == p.epoch]
+        counters["reads"] += 32
+        if not current:
+            counters["degraded_reads"] += 32
+        else:
+            us, uf = dag_mod.lookup_slots(p.engine.state, q_u)
+            vs, vf = dag_mod.lookup_slots(p.engine.state, q_v)
+            got = current[0].reachable_slots(us, vs) & uf & vf
+            counters["wrong_answers"] += int(torch.sum(got != want))
+
+    # ---- final verdicts ----
+    for i in range(replicas):
+        if reps[i].epoch != p.epoch:
+            reps[i] = reps[i].resync(p.engine)
+            counters["resyncs"] += 1
+        assert reps[i].converged_with(p.engine), (
+            f"replica {i} not bit-for-bit converged after resync\n"
+            + fp.report())
+
+    save_delta_log(log_path, p.log)
+    fp.corrupt_log_file(log_path)
+    like = new_engine(p.engine.capacity)
+    try:
+        tail = load_delta_log(log_path)  # torn tail -> valid prefix
+        shipped = [int(e.epoch) for e in p.log]
+        assert [int(e.epoch) for e in tail] == shipped[:len(tail)], \
+            "loaded log is not a prefix of the shipped log\n" + fp.report()
+        rec = recover_replica(ckpt_dir, like, tail)
+        rec = rec.replay(p.log)  # catch up past the torn tail
+        assert rec.converged_with(p.engine), (
+            "disk recovery + catch-up did not converge\n" + fp.report())
+        recovered = True
+    except (CorruptLogError, CorruptCheckpointError,
+            ReplicaDiverged) as err:
+        # mid-file corruption / no valid base: an EXPLICIT typed refusal
+        # is within contract — wrong state silently restored is not
+        counters["explicit_errors"] += 1
+        print(f"[serve-chaos] disk recovery refused explicitly: {err}")
+        recovered = False
+
+    if workdir is None:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"ticks": ticks, "epoch": p.epoch, "converged": 1,
+           "disk_recovered": int(recovered),
+           "injected": len(fp.injected), **counters}
+    assert counters["wrong_answers"] == 0, \
+        "chaos contract violated: wrong answers served\n" + fp.report()
+    print(f"[serve-chaos:{fault_plan}] seed={fault_seed} ticks={ticks} "
+          f"injected={out['injected']} crashes={counters['crashes']} "
+          f"resyncs={counters['resyncs']} "
+          f"degraded_reads={counters['degraded_reads']} "
+          f"wrong_answers={counters['wrong_answers']} converged=1")
+    return out
+
+
 def lm_generate(cfg, params, prompt: torch.Tensor, gen: int) -> dict:
     """Prefill ``prompt`` (B, T), then ``gen - 1`` greedy decode steps
     against a cache padded to ``T + gen``, as the reference's `serve_lm`
@@ -447,8 +826,38 @@ def main(argv=None) -> int:
                         "or the arch's published widths (full)")
     p.add_argument("--profile", default="steady", metavar="PROFILE",
                    help="request stream: steady begin/conflict/finish "
-                        "ticks, insheavy (no retirements), or the delheavy "
-                        "/ mixed churn streams")
+                        "ticks, insheavy (no retirements), the delheavy / "
+                        "mixed churn streams, paired (the sgt and engine "
+                        "surfaces tick-interleaved), read (writer + "
+                        "snapshot readers; see --replicas), frontend "
+                        "(open-loop asyncio front-end; see --load/"
+                        "--duration/--reader/--admission), or chaos "
+                        "(fault-injection replay; see --fault-seed/"
+                        "--fault-plan)")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="chaos profile: FaultPlan seed — the same seed + "
+                        "plan replays the same injection schedule")
+    p.add_argument("--fault-plan", default="kitchen-sink", metavar="PLAN",
+                   help="chaos profile: named fault plan (see "
+                        "repro_torch.ft.faults.NAMED_PLANS)")
+    p.add_argument("--replicas", type=int, default=0,
+                   help="read profile: snapshot readers (0 = the live "
+                        "engine answers); frontend / chaos profiles: "
+                        "Replica count")
+    p.add_argument("--reads", type=int, default=512,
+                   help="read profile: queries per reader per tick")
+    p.add_argument("--load", type=float, default=1000.0,
+                   help="frontend profile: offered load in requests/s "
+                        "(open-loop Poisson arrivals)")
+    p.add_argument("--duration", type=float, default=1.0,
+                   help="frontend profile: drive window in seconds")
+    p.add_argument("--reader", default="snapshot", metavar="READER",
+                   help="frontend profile: snapshot (a frozen snapshot a "
+                        "tick) or replica (delta-log replay into "
+                        "--replicas readers)")
+    p.add_argument("--admission", default="shed", metavar="POLICY",
+                   help="frontend profile: shed (429 exactly the dropped "
+                        "vertex adds) or grow (auto-double capacity)")
     p.add_argument("--capacity", type=int, default=1024,
                    help="engine capacity (a multiple of 32)")
     p.add_argument("--batch", type=int, default=256)
@@ -468,8 +877,16 @@ def main(argv=None) -> int:
                    help="torch device the engine or the model runs on "
                         "(default: cuda)")
     args = p.parse_args(argv)
+    from repro_torch.ft.faults import NAMED_PLANS
+    from repro_torch.serve import ADMISSION_POLICIES, READERS
     try:
         validate_choice(args.profile, PROFILES, what="profile")
+        validate_choice(args.reader, READERS, what="reader")
+        if args.profile == "chaos":
+            validate_choice(args.fault_plan, tuple(NAMED_PLANS),
+                            what="fault plan")
+        validate_choice(args.admission, ADMISSION_POLICIES,
+                        what="admission policy")
     except ValueError as e:
         p.error(str(e))
     if args.method == "incremental_rebuild" and \
@@ -493,6 +910,20 @@ def main(argv=None) -> int:
                   api=args.api, auto_grow=args.auto_grow, **common)
     elif args.profile == "insheavy":
         serve_sgt_insert_heavy(method=args.method, **common)
+    elif args.profile == "paired":
+        serve_sgt_paired(subbatches=args.subbatches, method=args.method,
+                         **common)
+    elif args.profile == "read":
+        serve_sgt_replicated(replicas=args.replicas, reads=args.reads,
+                             **common)
+    elif args.profile == "frontend":
+        serve_frontend(load=args.load, duration=args.duration,
+                       capacity=args.capacity, batch=args.batch,
+                       reader=args.reader, replicas=max(1, args.replicas),
+                       admission=args.admission, device=args.device)
+    elif args.profile == "chaos":
+        serve_chaos(fault_seed=args.fault_seed, fault_plan=args.fault_plan,
+                    replicas=max(1, args.replicas), **common)
     else:
         serve_sgt_churn(method=args.method, profile=args.profile, **common)
     return 0
