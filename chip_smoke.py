@@ -162,6 +162,24 @@ non-zero:
                   row_products.  (b) and (c) also profile one replay of
                   the last tick's entries.  The replay's launches of B2-B5 are added
                   to the kernels line's counts.
+  9. sharded    — the sharded backend on a mesh of 4 row shards of the
+                  card (`make_dag_mesh(n_shards=4)`): at C=2048 the card
+                  equals 4 CPU shards call for call (every leaf, ok bits,
+                  every ReachStats field with the per-shard deciding
+                  depths) on the dense mixed stream under "partial", the
+                  dense delheavy and the tiled mixed stream under
+                  "incremental"; then the sharded and the local engine
+                  on the card, ticked turn for turn and equal leaf for
+                  leaf (but depth_ema, D entries) after every tick:
+                  dense steady / delheavy / insheavy under "auto" (10 /
+                  10 / 6 ticks, phase 5's depths) and steady under
+                  "partial" (6 ticks) at C=16384, B=1024, and 6 tiled
+                  mixed ticks at C=131072, B=128; tick ms of each side and B1-B5 launches a tick
+                  (a product or fold 4 times, a repair hop at most 4
+                  times); the batch and the frontier scan plans forced
+                  on 1024 queries, equal to the local scan; reachable()
+                  and is_acyclic() on the mesh.  Its B1-B3 launches are
+                  added to the kernels line's counts.
 The line before the last is the per-kernel JSON record, the last line
 the device record.  Imports only the port, torch and numpy.
 """
@@ -2303,6 +2321,277 @@ def phase_replication():
     return total
 
 
+# ------------------------------------------------------------ 9. sharded
+
+SHARDS = 4                      # row shards of the one card
+SH_TICKS = {"steady": 10, "delheavy": 10, "insheavy": 6}  # C=16384, B=1024
+SH_PARTIAL_TICKS = 6            # steady under method "partial"
+SH_TILED_TICKS = 6              # C=131072, B=128 mixed
+SH_KERNELS = ("bitmm", "closure_update", "closure_delete")
+
+
+def _same_results(a, b, what: str, stats=None) -> None:
+    """ok bits, n_overflow and the ``stats`` fields (default: every
+    ReachStats field) equal, call by call."""
+    for ra, rb in zip(a, b):
+        check(torch.equal(ra.ok.cpu(), rb.ok.cpu()), f"{what}: ok bits differ")
+        check(int(ra.n_overflow) == int(rb.n_overflow),
+              f"{what}: n_overflow differs")
+        for field in stats or ra.stats._fields:
+            x, y = getattr(ra.stats, field), getattr(rb.stats, field)
+            check(np.array_equal(np.asarray(x), np.asarray(y)),
+                  f"{what}: ReachStats.{field} differs: {x} vs {y}")
+
+
+def _same_leaves(a, b, what: str, skip=()) -> None:
+    """Every engine leaf equal, compared where the tensors lie."""
+    from repro_torch.core import closure_cache
+
+    check(a.epoch == b.epoch and a.cache.dirty == b.cache.dirty,
+          f"{what}: epoch or dirty flag differs")
+    pairs = dict(zip(("keys", "alive", "adj", "n_overflow"),
+                     zip(a.state, b.state)))
+    ca, cb = a.cache.closure, b.cache.closure
+    if closure_cache.is_tiled(ca):
+        pairs["tiles"] = (ca.tiles, cb.tiles)
+        pairs["summary"] = (ca.summary, cb.summary)
+    else:
+        pairs["closure"] = (ca, cb)
+    pairs["repair_ema"] = (a.cache.repair_ema, b.cache.repair_ema)
+    pairs["depth_ema"] = (a.depth_ema, b.depth_ema)
+    for name, (x, y) in pairs.items():
+        if name not in skip:
+            check(x.shape == y.shape and torch.equal(x, y.to(x.device)),
+                  f"{what}: engine leaf {name} differs")
+
+
+def sharded_parity(mesh) -> None:
+    """C=2048: the sharded engine on the card and on CPU shards, call by
+    call (every leaf, ok bits, every ReachStats field incl. the per-shard
+    deciding depths)."""
+    from repro_torch.core import sharded
+    from repro_torch.core.engine import DagEngine
+    from repro_torch.launch import serve
+
+    cpu_mesh = sharded.make_dag_mesh("cpu", n_shards=SHARDS)
+    mixed = serve._sgt_churn_inputs(C_PARITY, B_PARITY, T_PARITY, 0, "mixed")
+    streams = {
+        "dense mixed, partial": ("partial", {}, mixed),
+        "dense delheavy, incremental": (
+            "incremental", {}, serve._sgt_churn_inputs(
+                C_PARITY, B_PARITY, T_PARITY, 0, "delheavy")),
+        "tiled mixed, incremental": (
+            "incremental", {"closure_layout": "tiled"},
+            serve._sgt_churn_inputs(C_PARITY, B_PARITY_TILED, T_PARITY, 0,
+                                    "mixed")),
+    }
+    for name, (method, layout, inputs) in streams.items():
+        engines = {m.home.type: DagEngine.create(
+            C_PARITY, backend="sharded", mesh=m, method=method, **layout)
+            for m in (mesh, cpu_mesh)}
+        t0 = time.perf_counter()
+        depths = set()
+        for xs in inputs:
+            res = {}
+            for d in engines:
+                engines[d], res[d] = serve.churn_tick(engines[d],
+                                                      serve.on_device(d, xs))
+            _same_results(res["cuda"], res["cpu"], f"sharded {name}")
+            _same_leaves(engines["cuda"], engines["cpu"], f"sharded {name}")
+            depths.update(tuple(r.stats.deciding_depth.tolist())
+                          for r in res["cuda"])
+        say("sharded", f"{name}: {T_PARITY} ticks at C={C_PARITY} on "
+            f"{SHARDS} shards identical on card and CPU (epoch "
+            f"{engines['cuda'].epoch}, per-shard deciding depths seen "
+            f"{sorted(depths)}, {time.perf_counter() - t0:.1f}s)")
+
+
+def _turns(stream, tick, inputs, engines, smi: str):
+    """Tick the local and the sharded engine turn for turn (local first on
+    even ticks), comparing them leaf for leaf after every tick.  Returns
+    the engines, each one's tick ms and launches a tick, and the sharded
+    engine's total launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    ms = {"local": [], "sharded": []}
+    per_tick = {"local": [], "sharded": []}
+    for i, xs in enumerate(inputs):
+        res = {}
+        order = ("local", "sharded") if i % 2 == 0 else ("sharded", "local")
+        for k in order:
+            args = serve.on_device("cuda", xs)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            engines[k], res[k] = tick(engines[k], args)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+            per_tick[k].append({n: ops.LAUNCHES[n] for n in BIT_KERNELS})
+        _same_results(res["local"], res["sharded"], f"{stream}, tick {i}",
+                      stats=("n_products", "n_partial", "n_incremental",
+                             "n_repair"))
+        for rl, rs in zip(res["local"], res["sharded"]):
+            check(int(rs.stats.deciding_depth.max())
+                  == int(rl.stats.deciding_depth.max()),
+                  f"{stream}, tick {i}: the deepest shard is not the local "
+                  "deciding depth")
+        _same_leaves(engines["sharded"], engines["local"],
+                     f"{stream}, tick {i}", skip=("depth_ema",))
+        lo, sh = per_tick["local"][-1], per_tick["sharded"][-1]
+        # one launch a row block: every product and every fold (B2 per
+        # block where the local tiled engine runs B4) SHARDS times, a
+        # repair hop (B3; B5 locally on the tiled layout) only in blocks
+        # not yet at their own fixpoint
+        folds = lo["closure_update"] + lo["closure_update_tiled"]
+        hops = lo["closure_delete"] + lo["closure_delete_tiled"]
+        check(sh["bitmm"] == SHARDS * lo["bitmm"]
+              and sh["closure_update"] == SHARDS * folds
+              and sh["closure_delete"] <= SHARDS * hops
+              and (sh["closure_delete"] > 0) == (hops > 0)
+              and sh["closure_update_tiled"] == sh["closure_delete_tiled"]
+              == 0,
+              f"{stream}, tick {i}: launches {sh} on {SHARDS} shards vs "
+              f"{lo} locally")
+    total = {n: sum(p[n] for p in per_tick["sharded"]) for n in SH_KERNELS}
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    say("sharded", f"{stream}: {len(inputs)} ticks, sharded == local leaf "
+        f"for leaf after every tick; tick ms turn for turn (local, "
+        f"sharded): {[round(x, 3) for x in ms['local']]} / "
+        f"{[round(x, 3) for x in ms['sharded']]}, medians {med['local']:.3f}"
+        f" / {med['sharded']:.3f}; launches of B1-B5 a tick, local "
+        f"{[tuple(p.values()) for p in per_tick['local']]} sharded "
+        f"{[tuple(p.values()) for p in per_tick['sharded']]} ({smi})")
+    return engines, total
+
+
+def _path_queries(eng, n: int):
+    """``n`` (from, to) key pairs on the card: sources with out-edges, and
+    for every other query a target the source reaches (a set bit of its
+    row of the engine's clean closure), else a random live vertex."""
+    from repro_torch.core import bitset
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st, closure = eng.state, eng.refresh_cache().cache.closure
+    sources = torch.nonzero(torch.any(st.adj != 0, dim=1)).flatten()
+    live = torch.nonzero(st.alive).flatten()
+    f = sources[torch.randint(sources.numel(), (n,), device="cuda",
+                              generator=gen)]
+    reach = bitset.unpack_bits(closure[f]).float()
+    g = live[torch.randint(live.numel(), (n,), device="cuda",
+                           generator=gen)]
+    has = torch.any(reach > 0, dim=1) & (torch.arange(n, device="cuda")
+                                          % 2 == 0)
+    picked = torch.multinomial(reach + (~has)[:, None].float(), 1,
+                               generator=gen).flatten()
+    g = torch.where(has, picked, g)
+    return st.keys[f], st.keys[g]
+
+
+def phase_sharded(smi: str) -> dict:
+    """Phase 9: the sharded backend on one card (4 row shards of it).
+    Returns the sharded runs' launches of B1-B3."""
+    from repro_torch.core import closure_cache, sharded, snapshot
+    from repro_torch.core.engine import DagEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    mesh = sharded.make_dag_mesh(n_shards=SHARDS)
+    check(mesh.n_devices == SHARDS and mesh.home.type == "cuda",
+          f"make_dag_mesh(n_shards={SHARDS}) gave {mesh}")
+    sharded_parity(mesh)
+    torch.cuda.empty_cache()
+    total = {n: 0 for n in SH_KERNELS}
+    streams = [
+        ("dense steady auto", serve.steady_tick, "auto", {},
+         serve._sgt_tick_inputs(C_FULL, B_FULL, SH_TICKS["steady"], 0)),
+        ("dense delheavy auto", serve.churn_tick, "auto", {},
+         serve._sgt_churn_inputs(C_FULL, B_FULL, SH_TICKS["delheavy"], 0,
+                                 "delheavy")),
+        ("dense insheavy auto", serve.insert_heavy_tick, "auto", {},
+         serve._sgt_insert_heavy_inputs(C_FULL, B_FULL,
+                                        SH_TICKS["insheavy"], 0)),
+        ("dense steady partial", serve.steady_tick, "partial", {},
+         serve._sgt_tick_inputs(C_FULL, B_FULL, SH_PARTIAL_TICKS, 0)),
+    ]
+    kept = {}
+    for name, tick, method, layout, inputs in streams:
+        engines = {"local": DagEngine.create(C_FULL, method=method, **layout),
+                   "sharded": DagEngine.create(C_FULL, backend="sharded",
+                                               mesh=mesh, method=method,
+                                               **layout)}
+        engines, launched = _turns(f"C={C_FULL} B={B_FULL} {name}", tick,
+                                   inputs, engines, smi)
+        for n in SH_KERNELS:
+            total[n] += launched[n]
+        if name == "dense insheavy auto":   # it retires nothing
+            kept = engines
+        del engines
+    # the two partial-scan plans forced on the insheavy graph, and the
+    # engine's reads, closure squaring and acyclicity check on the mesh
+    eng, local = kept["sharded"], kept["local"]
+    f, g = _path_queries(local, B_FULL)
+    from repro_torch.core import reachability
+    src, t_slot, ok = reachability.seed_path_queries(eng.state, f, g)
+    want = snapshot.reach_until_decided(local.state.adj, src, t_slot)
+    for plan, fn in (("batch", sharded.reach_until_decided_batch_sharded),
+                     ("frontier", sharded.reach_until_decided_sharded)):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit = fn(mesh, eng.state.adj, src, t_slot)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(hit, want), f"the {plan} plan's scan differs from "
+              "the local scan")
+        check(ops.LAUNCHES["bitmm"] % SHARDS == 0 and ops.LAUNCHES["bitmm"],
+              f"the {plan} plan launched B1 {ops.LAUNCHES['bitmm']} times")
+        total["bitmm"] += ops.LAUNCHES["bitmm"]
+        say("sharded", f"{plan} plan forced: {B_FULL} queries at C={C_FULL}"
+            f" (sources with out-edges, half the targets reachable), "
+            f"{ms:.3f} ms, {ops.LAUNCHES['bitmm']} B1 launches "
+            f"({ops.LAUNCHES['bitmm'] // SHARDS} hops x {SHARDS} shards), "
+            f"hits {int(hit.sum())} == local")
+    ops.reset_launches()
+    hits = eng.reachable(f, g)
+    acyclic = bool(eng.is_acyclic())
+    torch.cuda.synchronize()
+    read = dict(ops.LAUNCHES)
+    total["bitmm"] += read["bitmm"]
+    check(torch.equal(hits, local.reachable(f, g)),
+          "sharded reachable() differs from the local engine's")
+    check(acyclic and bool(local.is_acyclic()), "a cycle on the mesh")
+    check(closure_cache.cache_matches_state(eng.cache, eng.state.adj),
+          "the sharded cache disagrees with a from-scratch closure")
+    say("sharded", f"reachable ({B_FULL} queries) and is_acyclic on the "
+        f"mesh: {read['bitmm']} B1 launches, equal to the local engine's")
+    del kept, eng, local
+    torch.cuda.empty_cache()
+    # the tiled main path, a few ticks
+    inputs = serve._sgt_churn_inputs(C_TILED, B_TILED, SH_TILED_TICKS, 0,
+                                     "mixed")
+    engines = {"local": DagEngine.create(
+                   C_TILED, method="incremental", closure_layout="tiled"),
+               "sharded": DagEngine.create(
+                   C_TILED, backend="sharded", mesh=mesh,
+                   method="incremental", closure_layout="tiled")}
+    engines, launched = _turns(f"C={C_TILED} B={B_TILED} tiled mixed "
+                               "incremental", serve.churn_tick, inputs,
+                               engines, smi)
+    for n in SH_KERNELS:
+        total[n] += launched[n]
+    check(engines["sharded"].closure_region % (32 * SHARDS) == 0,
+          "the sharded tiles window is off the 32 x D grid")
+    del engines
+    torch.cuda.empty_cache()
+    say("sharded", f"launches on the sharded paths {total} "
+        f"({time.perf_counter() - t_phase:.1f}s)")
+    check(all(v > 0 for v in total.values()),
+          f"a kernel of B1-B3 never launched on the sharded paths: {total}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2319,6 +2608,8 @@ def main() -> int:
     launches["flash_attention"] = phase_lm()["flash_attention"]
     launches["embbag"] = phase_recsys()["embbag"]
     for k, v in phase_replication().items():
+        launches[k] += v
+    for k, v in phase_sharded(smi).items():
         launches[k] += v
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f}s")
     kernels = []

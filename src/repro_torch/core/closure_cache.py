@@ -136,9 +136,10 @@ def summary_words(capacity: int) -> int:
     return (capacity // TILE + TILE - 1) // TILE
 
 
-def align_region(n: int, capacity: int) -> int:
-    """Smallest valid window >= n: a multiple of 32, capped at capacity."""
-    r = max(TILE, ((int(n) + TILE - 1) // TILE) * TILE)
+def align_region(n: int, capacity: int, multiple: int = TILE) -> int:
+    """Smallest valid window >= n: a multiple of ``multiple`` (32, or
+    32 x D on a mesh of D row shards), capped at capacity."""
+    r = max(multiple, ((int(n) + multiple - 1) // multiple) * multiple)
     return min(r, capacity)
 
 

@@ -1,6 +1,7 @@
-"""Unified `DagEngine` session API — the local backend, in torch.
+"""Unified `DagEngine` session API — one façade over the local and sharded
+backends, in torch.
 
-Port of `repro.core.engine` (local backend, both closure layouts):
+Port of `repro.core.engine` (both backends, both closure layouts):
 
     eng = DagEngine.create(1024)                    # on "cuda", method="auto"
     eng, r = eng.add_vertices(keys)                 # r: OpResult
@@ -32,8 +33,14 @@ widening, so an edge past the window degrades the cache to dirty and the
 exact partial check decides.  The window's high-water marks are reduced
 on the card: only integers cross to the host, never the slab.
 
-Not ported yet, raising NotImplementedError: ``backend="sharded"``
-(ROADMAP.md section A item 11).
+``backend="sharded"`` splits the adjacency's and the closure's rows over
+a `core.sharded.DagMesh` of D row shards (default: every visible card;
+``make_dag_mesh(n_shards=D)`` repeats one device D times).  The state
+stays whole tensors on the mesh's first device; the closure squarings and
+full scans, the partial scan's hops (the schedule ``policy.scan_sharding``
+picks), the rank-B fold and the delete repair run each shard's row block
+through B1 / B2 / B3, and the per-shard deciding depths feed a D-entry
+EMA.  Capacities and tiles windows sit on a grid of 32 x D.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import torch
 from repro_torch.core import bitset, closure_cache, dispatch, reachability
 from repro_torch.core import acyclic as acyclic_mod
 from repro_torch.core import dag as dag_mod
+from repro_torch.core import sharded as sharded_mod
 from repro_torch.core import snapshot, snapshot_view
 from repro_torch.core.closure_cache import ClosureCache
 from repro_torch.core.dag import (
@@ -56,9 +64,6 @@ from repro_torch.core.dag import (
 from repro_torch.core.reachability import MatmulImpl
 
 BACKENDS = ("local", "sharded")
-
-SHARDED_NOT_PORTED = ("backend='sharded' is not ported yet "
-                      "(ROADMAP.md section A item 11)")
 
 _COMPILED = contextvars.ContextVar("repro_torch_compiled", default=False)
 
@@ -186,9 +191,11 @@ class OpResult(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static session configuration (see `repro.core.engine.EngineConfig`;
-    the mesh field comes with its port).  ``device`` is the one option the
-    port adds.  ``None`` for an impl means the `kernels.ops` dispatcher."""
+    """Static session configuration (see `repro.core.engine.EngineConfig`).
+    ``device`` is the one option the port adds (the mesh's first device on
+    the sharded backend).  ``None`` for an impl means the derived default:
+    the row-sharded schedule on the sharded backend, the `kernels.ops`
+    dispatcher locally."""
 
     capacity: int
     backend: str = "local"
@@ -196,6 +203,7 @@ class EngineConfig:
     subbatches: int = 1
     matmul_impl: Optional[MatmulImpl] = None
     policy: Optional[dispatch.DispatchPolicy] = None
+    mesh: Optional[object] = None  # core.sharded.DagMesh for "sharded"
     closure_update_impl: Optional[object] = None
     closure_delete_impl: Optional[object] = None
     auto_grow: bool = False
@@ -208,7 +216,7 @@ class EngineConfig:
 
     @property
     def n_devices(self) -> int:
-        return 1
+        return self.mesh.n_devices if self.mesh is not None else 1
 
 
 def _capacity_alignment(backend: str, n_dev: int) -> Tuple[int, str]:
@@ -288,36 +296,56 @@ class DagEngine:
         default to the `kernels.ops` dispatchers.
         ``closure_layout="tiled"`` stores the cache as tiles in a region
         window (``closure_region`` pre-sizes it) plus a per-tile occupancy
-        summary.  ``mesh`` is the reference's keyword for the sharded
-        backend; the local engine ignores it, as the reference's does."""
+        summary.  ``backend="sharded"`` splits the rows over ``mesh``
+        (default: every visible card, `core.sharded.make_dag_mesh`) and
+        lives on the mesh's first device (``device``, if given, must be
+        it); the local engine ignores ``mesh``, as the reference's does."""
         if backend not in BACKENDS:
             raise ValueError(
                 f"backend must be one of {BACKENDS}, got {backend!r}")
-        if backend == "sharded":
-            raise NotImplementedError(SHARDED_NOT_PORTED)
         if subbatches < 1:
             raise ValueError(f"subbatches must be >= 1, got {subbatches}")
-        validate_capacity(capacity, backend="local")
+        if backend == "sharded":
+            mesh = mesh if mesh is not None else sharded_mod.make_dag_mesh()
+            validate_capacity(capacity, backend="sharded",
+                              n_dev=mesh.n_devices)
+            dev = mesh.home
+            if device is not None and resolve_device(device) != dev:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's first device "
+                    f"{dev}")
+        else:
+            mesh = None
+            validate_capacity(capacity, backend="local")
+            dev = resolve_device(device)
         if closure_layout not in ("dense", "tiled"):
             raise ValueError(
                 f"closure_layout must be 'dense' or 'tiled', got "
                 f"{closure_layout!r}")
-        dev = resolve_device(device)
         policy = dispatch.policy_for_method(method, policy)
         method = dispatch.method_name(policy)
         state = dag_mod.new_state(capacity, device=dev)
         # a fresh engine's cache is exact: the empty graph's strict
         # closure is all-zeros
         if closure_layout == "tiled":
+            if backend == "sharded":
+                # tiles split their rows like the slab: keep the window on
+                # the mesh's capacity grid
+                closure_region = closure_cache.align_region(
+                    closure_region or closure_cache.default_region(capacity),
+                    capacity, bitset.WORD * mesh.n_devices)
             cache = closure_cache.empty_tiled_cache(capacity, closure_region,
                                                     device=dev)
             closure_region = cache.closure.region
         else:
             cache = closure_cache.empty_cache(capacity, device=dev)
-        del mesh
+        if backend == "sharded":
+            state = sharded_mod.shard_state(state, mesh)
+            cache = sharded_mod.shard_cache(cache, mesh)
         config = EngineConfig(capacity=capacity, backend=backend,
                               method=method, subbatches=subbatches,
                               matmul_impl=matmul_impl, policy=policy,
+                              mesh=mesh,
                               closure_update_impl=closure_update_impl,
                               closure_delete_impl=closure_delete_impl,
                               auto_grow=auto_grow,
@@ -348,7 +376,7 @@ class DagEngine:
         eng = self._region_synced()
         closure, _ = closure_cache.refresh_closure(
             eng.cache.closure, eng.cache.dirty, eng.state.adj,
-            eng.config.matmul_impl)
+            eng._matmul_impl())
         return DagEngine(eng.state, eng.depth_ema,
                          ClosureCache(closure, False, eng.cache.repair_ema),
                          eng.config, eng.epoch)
@@ -360,7 +388,7 @@ class DagEngine:
         eng = self._region_synced()
         closure, _ = closure_cache.refresh_closure(
             eng.cache.closure, eng.cache.dirty, eng.state.adj,
-            eng.config.matmul_impl)
+            eng._matmul_impl())
         return snapshot_view.EngineSnapshot(eng.epoch, eng.state, closure)
 
     def with_options(self, *, method: Optional[str] = None,
@@ -397,6 +425,9 @@ class DagEngine:
             return self
         state = dag_mod.grow_state(self.state, new_capacity)
         cache = closure_cache.grow_cache(self.cache, new_capacity)
+        if cfg.backend == "sharded":
+            state = sharded_mod.shard_state(state, cfg.mesh)
+            cache = sharded_mod.shard_cache(cache, cfg.mesh)
         config = dataclasses.replace(cfg, capacity=new_capacity)
         return DagEngine(state, self.depth_ema, cache, config, self.epoch)
 
@@ -408,6 +439,14 @@ class DagEngine:
         closure = self.cache.closure
         return closure.region if closure_cache.is_tiled(closure) else None
 
+    def _region_align(self) -> int:
+        return bitset.WORD * self.config.n_devices \
+            if self.config.backend == "sharded" else bitset.WORD
+
+    def _aligned_region(self, n: int) -> int:
+        return closure_cache.align_region(n, self.capacity,
+                                          self._region_align())
+
     def _with_region(self, new_region: int) -> "DagEngine":
         """Engine with the tiles window widened to ``new_region`` (no-op on
         dense or when already wide enough): zero-padding of the tiles;
@@ -415,11 +454,13 @@ class DagEngine:
         closure = self.cache.closure
         if not closure_cache.is_tiled(closure):
             return self
-        nr = closure_cache.align_region(new_region, self.capacity)
+        nr = self._aligned_region(new_region)
         if nr <= closure.region:
             return self
         cache = self.cache._replace(
             closure=closure_cache.grow_region(closure, nr))
+        if self.config.backend == "sharded":
+            cache = sharded_mod.shard_cache(cache, self.config.mesh)
         return DagEngine(self.state, self.depth_ema, cache, self.config,
                          self.epoch)
 
@@ -472,8 +513,7 @@ class DagEngine:
         if layout == "tiled":
             need = max(int(region), closure_cache.TILE,
                        _bit_high_water(dense | self.state.adj))
-            tiled = closure_cache.tiled_of(
-                dense, closure_cache.align_region(need, cfg.capacity))
+            tiled = closure_cache.tiled_of(dense, self._aligned_region(need))
             new_cache = cache._replace(closure=tiled)
             config = dataclasses.replace(cfg, closure_layout="tiled",
                                          closure_region=tiled.region)
@@ -484,6 +524,8 @@ class DagEngine:
         else:
             raise ValueError(
                 f"closure_layout must be 'dense' or 'tiled', got {layout!r}")
+        if cfg.backend == "sharded":
+            new_cache = sharded_mod.shard_cache(new_cache, cfg.mesh)
         return DagEngine(self.state, self.depth_ema, new_cache, config,
                          self.epoch)
 
@@ -505,9 +547,10 @@ class DagEngine:
 
     def __repr__(self):
         c = self.config
+        shards = f", shards={c.n_devices}" if c.backend == "sharded" else ""
         return (f"DagEngine(capacity={c.capacity}, backend={c.backend!r}, "
                 f"method={c.method!r}, subbatches={c.subbatches}, "
-                f"device={str(c.device)!r})")
+                f"device={str(c.device)!r}{shards})")
 
     # ---------------------------------------------------------- internals
 
@@ -564,6 +607,33 @@ class DagEngine:
 
         return prefer
 
+    def _matmul_impl(self):
+        """The boolean product of the closure squarings and full scans: the
+        config override, else the row-sharded product on the mesh, else
+        None (the `kernels.ops` dispatcher).  Derived per call, so equal
+        configurations stay equal."""
+        cfg = self.config
+        if cfg.matmul_impl is not None or cfg.backend != "sharded":
+            return cfg.matmul_impl
+        return sharded_mod.engine_matmul_impl(cfg.mesh)
+
+    def _closure_update_impl(self):
+        """The rank-B fold: the config override, else the row-sharded
+        schedule on the mesh, else None (the `kernels.ops` dispatcher)."""
+        cfg = self.config
+        if cfg.closure_update_impl is not None or cfg.backend != "sharded":
+            return cfg.closure_update_impl
+        return sharded_mod.closure_update_impl(cfg.mesh)
+
+    def _closure_delete_impl(self):
+        """The delete-repair scan, derived as `_closure_update_impl`: the
+        override, else the row-sharded schedule, else None
+        (`closure_cache.masked_delete_scan`)."""
+        cfg = self.config
+        if cfg.closure_delete_impl is not None or cfg.backend != "sharded":
+            return cfg.closure_delete_impl
+        return sharded_mod.closure_delete_impl(cfg.mesh)
+
     def _commit_cache(self, state: DagState, delta):
         """Apply a mutation's typed `CacheDelta` through the single
         `closure_cache.commit` entry point -> (cache', ReachStats)."""
@@ -572,8 +642,8 @@ class DagEngine:
             return self.cache._replace(dirty=True), zeros
         cache, st = closure_cache.commit(
             self.cache, delta, state.adj,
-            update_impl=self.config.closure_update_impl,
-            delete_impl=self.config.closure_delete_impl,
+            update_impl=self._closure_update_impl(),
+            delete_impl=self._closure_delete_impl(),
             prefer_repair_fn=self._prefer_repair_fn(),
             ema_alpha=getattr(self.config.policy, "ema_alpha", 0.25),
             with_stats=True)
@@ -584,18 +654,30 @@ class DagEngine:
     def _overflow_delta(self, state: DagState) -> torch.Tensor:
         return state.n_overflow - self.state.n_overflow
 
-    def _dispatch_hooks(self):
-        """(method, prefer_partial_fn) for one cycle-checked call."""
-        policy = self.config.policy
+    def _dispatch_hooks(self, batch: int):
+        """(method, prefer_partial_fn, partial_matmul_impl) for one
+        cycle-checked call of ``batch`` candidate rows; on the mesh the
+        partial scan's schedule is the one ``policy.scan_sharding`` picks
+        for a sub-batch."""
+        cfg = self.config
+        policy = cfg.policy
         fixed = getattr(policy, "fixed_method", None)
         if fixed is not None:
-            return fixed, None
-        ema = self.depth_ema
+            method, prefer = fixed, None
+        else:
+            ema = self.depth_ema
 
-        def prefer(adj_t, b_sub):
-            return policy.prefer_partial(adj_t, b_sub, depth_hint=ema)
+            def prefer(adj_t, b_sub):
+                return policy.prefer_partial(adj_t, b_sub, depth_hint=ema)
 
-        return "auto", prefer
+            method = "auto"
+        partial_impl = cfg.matmul_impl
+        if cfg.backend == "sharded":
+            b_sub = max(1, batch // cfg.subbatches)
+            plan = policy.scan_sharding(b_sub, cfg.capacity, cfg.n_devices)
+            partial_impl = sharded_mod.partial_scan_matmul_impl(cfg.mesh,
+                                                                plan)
+        return method, prefer, partial_impl
 
     # ------------------------------------------------------ vertex ops
 
@@ -637,15 +719,16 @@ class DagEngine:
         configured policy; joint-abort semantics within a sub-batch."""
         cfg = self.config
         us, vs = self._keys(us), self._keys(vs)
-        method, prefer = self._dispatch_hooks()
+        method, prefer, partial_impl = self._dispatch_hooks(us.shape[0])
         common = dict(valid=valid, subbatches=cfg.subbatches,
-                      matmul_impl=cfg.matmul_impl, method=method,
+                      matmul_impl=self._matmul_impl(), method=method,
                       with_stats=True, prefer_partial_fn=prefer,
+                      partial_matmul_impl=partial_impl,
                       n_shards=cfg.n_devices)
         if self._cache_aware(method):
             state, ok, cache, stats = acyclic_mod.acyclic_add_edges_impl(
                 self.state, us, vs, cache=self.cache,
-                closure_update_impl=cfg.closure_update_impl,
+                closure_update_impl=self._closure_update_impl(),
                 prefer_incremental_fn=getattr(cfg.policy,
                                               "prefer_incremental", None),
                 **common)
@@ -684,29 +767,38 @@ class DagEngine:
     def reachable(self, from_keys, to_keys) -> torch.Tensor:
         """Batch PathExists(from, to): True iff a path of >= 1 edge exists.
         A pinned "incremental" engine reads its clean cache (B bit reads);
-        otherwise the policy picks the full or the early-exit scan."""
+        otherwise the policy picks the full or the early-exit scan; on the
+        mesh the early-exit scan runs the schedule ``policy.scan_sharding``
+        picks (B-sharded or frontier-sharded)."""
         cfg = self.config
         from_keys, to_keys = self._keys(from_keys), self._keys(to_keys)
         b = from_keys.shape[0]
         fixed = getattr(cfg.policy, "fixed_method", None)
+        mm = self._matmul_impl()
         if fixed == "incremental":
             if self.cache.dirty:
                 # reads cannot return a rebuilt engine: full scan instead
                 return reachability.path_exists(self.state, from_keys,
-                                                to_keys, cfg.matmul_impl)
+                                                to_keys, mm)
             f_slot, f_found = dag_mod.lookup_slots(self.state, from_keys)
             t_slot, t_found = dag_mod.lookup_slots(self.state, to_keys)
             return f_found & t_found & closure_cache.closure_bit_get(
                 self.cache.closure, f_slot, t_slot)
         if fixed == "closure":
             return reachability.path_exists(self.state, from_keys, to_keys,
-                                            cfg.matmul_impl)
+                                            mm)
+        if cfg.backend == "sharded":
+            src, t_slot, endpoints_ok = reachability.seed_path_queries(
+                self.state, from_keys, to_keys)
+            plan = cfg.policy.scan_sharding(b, cfg.capacity, cfg.n_devices)
+            scan = sharded_mod.reach_until_decided_batch_sharded \
+                if plan == "batch" else sharded_mod.reach_until_decided_sharded
+            return endpoints_ok & scan(cfg.mesh, self.state.adj, src, t_slot)
         if fixed == "partial" or bool(cfg.policy.prefer_partial(
                 self.state.adj, b, depth_hint=self.depth_ema)):
             return snapshot.path_exists_partial(self.state, from_keys,
-                                                to_keys, cfg.matmul_impl)
-        return reachability.path_exists(self.state, from_keys, to_keys,
-                                        cfg.matmul_impl)
+                                                to_keys, mm)
+        return reachability.path_exists(self.state, from_keys, to_keys, mm)
 
     def is_acyclic(self) -> torch.Tensor:
         """True iff the graph has no cycle.  On the tiled layout, when every
@@ -716,7 +808,7 @@ class DagEngine:
         adj, region = self.state.adj, self.closure_region
         if region is not None and closure_cache.region_confined(adj, region):
             adj = closure_cache.region_window(adj, region)
-        return reachability.is_acyclic(adj, self.config.matmul_impl)
+        return reachability.is_acyclic(adj, self._matmul_impl())
 
     def live_vertex_count(self) -> torch.Tensor:
         return dag_mod.live_vertex_count(self.state)
@@ -735,16 +827,17 @@ class DagEngine:
             self = self._pre_widened(
                 int(torch.sum(batch.op == ADD_VERTEX)))
         cfg = self.config
-        method, prefer = self._dispatch_hooks()
+        method, prefer, partial_impl = self._dispatch_hooks(batch.size)
         common = dict(acyclic=acyclic, subbatches=cfg.subbatches,
-                      method=method, matmul_impl=cfg.matmul_impl,
+                      method=method, matmul_impl=self._matmul_impl(),
                       with_stats=True, prefer_partial_fn=prefer,
+                      partial_matmul_impl=partial_impl,
                       n_shards=cfg.n_devices)
         if acyclic and self._cache_aware(method):
             state, ok, cache, stats = dag_mod.apply_op_batch_impl(
                 self.state, batch.op, batch.a, batch.b, cache=self.cache,
-                closure_update_impl=cfg.closure_update_impl,
-                closure_delete_impl=cfg.closure_delete_impl,
+                closure_update_impl=self._closure_update_impl(),
+                closure_delete_impl=self._closure_delete_impl(),
                 prefer_repair_fn=self._prefer_repair_fn(),
                 prefer_incremental_fn=getattr(cfg.policy,
                                               "prefer_incremental", None),

@@ -1,8 +1,9 @@
 // B3 — one hop of the delete-repair masked scan for Hopper (sm_90a).
 //
 //   out[w] = affected[w] ? r[w] | OR over {x : r[w, x]} s[x] : r[w]
-//   r, s uint32 (C, C/32), affected uint32 (C/32,) row mask
-//   -> out uint32 (C, C/32)
+//   r uint32 (M, C/32), s uint32 (C, C/32), affected uint32 (ceil(M/32),)
+//   row mask -> out uint32 (M, C/32); M = C, or M rows of one shard's
+//   block of the closure (the argument c below is M)
 //
 // Replaces the TPU kernel `closure_delete` of
 // src/repro/kernels/closure_delete.py:67 (pl.pallas_call at :86), which

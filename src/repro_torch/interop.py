@@ -1,8 +1,10 @@
 """Carry an engine's state across the two packages, as numpy arrays.
 
-The leaves are the dynamic state of `repro.core.engine.DagEngine` (local
-backend): ``keys``, ``alive``, ``adj``, ``n_overflow``, ``depth_ema``,
-the closure cache and ``epoch``.  The cache crosses as ``cache.closure``
+The leaves are the dynamic state of `repro.core.engine.DagEngine` (either
+backend; on a mesh of D shards ``depth_ema`` holds D entries, the other
+leaves are the local engine's): ``keys``, ``alive``, ``adj``,
+``n_overflow``, ``depth_ema``, the closure cache and ``epoch``.  The
+cache crosses as ``cache.closure``
 on the dense layout, and as ``cache.closure.tiles`` and
 ``cache.closure.summary`` (the two leaves of a `TiledClosure`) on the
 tiled one, followed by ``cache.dirty`` and ``cache.repair_ema``.  Packed

@@ -357,8 +357,16 @@ def test_create_defaults_to_the_card():
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the sharded backend is ported (tests/test_torch_sharded.py): its
+    # default mesh is every card, so without one it raises; a mesh of CPU
+    # shards runs
+    from repro_torch.core.sharded import make_dag_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         TEngine.create(64, backend="sharded", device="cpu")
+    eng = TEngine.create(64, backend="sharded",
+                         mesh=make_dag_mesh("cpu", n_shards=2))
+    assert eng.config.n_devices == 2 and eng.depth_ema.shape == (2,)
     # the tiled layout is ported (tests/test_torch_tiled_engine.py); an
     # unknown layout still raises
     assert TEngine.create(64, closure_layout="tiled",

@@ -168,15 +168,19 @@ def forced_paths(m, dev):
                        device=dev))
 
 
-# The card cases are parametrized over shapes; each loops over its
-# densities inside and names the failing one.  Their count on the CPU,
-# where they only skip, is held down: see ROADMAP "How this round works".
-# B1 and B3 are also checked with every block forced down each of their
-# two paths, on block-mixed operands (both paths in one launch) and, for
-# square shapes, with lhs and rhs the same tensor.
+# Each card case is one item looping over its shapes and densities and
+# naming the failing one.  Their count on the CPU, where they only skip,
+# is held down: see ROADMAP "How this round works".  B1 and B3 are also
+# checked with every block forced down each of their two paths, on
+# block-mixed operands (both paths in one launch) and, for square shapes,
+# with lhs and rhs the same tensor.
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", BITMM_SHAPES + [(33, 96, 160)])
-def test_bitmm_kernel_matches_plain_on_card(m, k, n):
+def test_bitmm_kernel_matches_plain_on_card():
+    for m, k, n in BITMM_SHAPES + [(33, 96, 160)]:
+        _bitmm_card_cases(m, k, n)
+
+
+def _bitmm_card_cases(m, k, n):
     from repro_torch.kernels import bitmm
 
     dev = _need_card()
@@ -187,6 +191,7 @@ def test_bitmm_kernel_matches_plain_on_card(m, k, n):
     cases.append(("block-mixed", (block_mixed(rng, m, k),
                                   packed(rng, (k, n), 0.25))))
     for label, (a, b) in cases:
+        label = f"({m}, {k}, {n}), {label}"
         lhs, rhs = t(a, dev), t(b, dev)
         operands = [(lhs, rhs)]
         if m == k == n:
@@ -211,17 +216,16 @@ UPDATE_RAGGED = [(c, b) for c in (320, 1056) for b in (32, 96, 1024)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,b", UPDATE_SHAPES + [(320, 64)])
-def test_closure_update_kernel_matches_plain_on_card(c, b):
+def test_closure_update_kernel_matches_plain_on_card():
     """B2 as the main path calls it and with every block forced down each
     of its two paths: closure densities 0 / 5 / 50%, mask densities
     across the threshold, an all-zero mask, an all-ones closure and
-    block-mixed masks (both paths in one launch)."""
+    block-mixed masks (both paths in one launch), at UPDATE_SHAPES, at
+    (320, 64) and at UPDATE_RAGGED."""
     from repro_torch.kernels import closure_update
 
     dev = _need_card()
-    shapes = [(c, b)] + (UPDATE_RAGGED if (c, b) == (320, 64) else [])
-    for cc, bb in shapes:
+    for cc, bb in UPDATE_SHAPES + [(320, 64)] + UPDATE_RAGGED:
         rng = np.random.default_rng(cc * 3 + bb)
         cases = [(f"closure density {d}", update_inputs(cc, bb, d))
                  for d in (0.0, 0.05, 0.5)]
@@ -260,7 +264,6 @@ def test_closure_delete_kernel_matches_plain_on_card():
 
     dev = _need_card()
     for c in DELETE_CAPS:
-        sparse, dense = forced_paths(c, dev)
         rng = np.random.default_rng(c)
         cases = [(f"C={c}, affected fraction {f}", delete_inputs(c, f))
                  for f in (0.0, 0.25, 1.0)]
@@ -273,12 +276,24 @@ def test_closure_delete_kernel_matches_plain_on_card():
         cases.append((f"C={c}, block-mixed",
                       (block_mixed(rng, c, c), packed(rng, (c, c), 0.05),
                        packed(rng, (c,), 0.5))))
+        # one shard's row block (`core/sharded.closure_delete_impl`): M
+        # rows of r against the whole s, affected one bit a block row;
+        # M down to one 32-row word
+        for m in (32, 96, c // 4):
+            if m % 32 == 0 and m < c:
+                for f in (0.25, 1.0):
+                    cases.append((f"C={c}, a block of {m} rows, affected "
+                                  f"fraction {f}",
+                                  (packed(rng, (c, c), 0.05)[c - m:],
+                                   packed(rng, (c, c), 0.05),
+                                   packed(rng, (m,), f))))
         for label, arrays in cases:
             args = [t(a, dev) for a in arrays]
             want = ops.closure_delete(*args, impl="ref")
             got = ops.closure_delete(*args, impl="cuda")
             torch.cuda.synchronize()
             assert torch.equal(got, want), label
+            sparse, dense = forced_paths(args[0].shape[0], dev)
             for path, work in (("sparse", sparse), ("dense", dense)):
                 assert torch.equal(
                     closure_delete.closure_delete_paths(*args, work),
@@ -293,6 +308,11 @@ def test_kernel_wrappers_reject_bad_operands_on_card():
         ops.bitmm_packed(lhs.to(torch.int64), rhs)
     with pytest.raises(ValueError, match="contiguous"):
         ops.bitmm_packed(lhs.t(), lhs)
+    r, s, aff = (t(a, dev) for a in delete_inputs(128, 0.25))
+    with pytest.raises(ValueError, match="shapes"):
+        ops.closure_delete(r[:64], s, aff)     # affected: 4 words, not 2
+    with pytest.raises(ValueError, match="shapes"):
+        ops.closure_delete(r, s[:64], aff)
     with pytest.raises(ValueError, match="rows"):
         ops.bitmm_packed(lhs, rhs[:128])
     from repro_torch.kernels import closure_update
